@@ -1,0 +1,90 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Both sources compile with ``nvcc`` for Hopper (``sm_90a``) into ONE shared
+library with a plain C interface, loaded with ``ctypes``. The build runs
+on first use into ``chalkydri_tpu_torch/_build/`` (ignored by git) and is
+reused while the sources and flags hash the same. Nothing here runs at
+import time, so the package imports on machines without a CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SOURCES = ("ccl_extract.cu", "segment_stats.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # gray, B, H, W, iters, min_diff, tile_min, tile_max, tern, bits,
+    # lab_a, lab_b, black, white, payload, stream
+    "chalkydri_ccl_extract": [_P, _I, _I, _I, _I, _I] + [_P] * 10,
+    # key, payload, B, n, tile_count, tile_first, t, cand_len, cand_pos,
+    # stream
+    "chalkydri_segment_stats": [_P, _P, _I, _I] + [_P] * 6,
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (nvcc on PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, f"libchalkydri_kernels_{_digest()}.so")
+
+
+def build() -> str:
+    """Compile the kernels unless a library for these sources exists;
+    returns its path."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+@functools.lru_cache(maxsize=1)
+def kernel_library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` code from a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
