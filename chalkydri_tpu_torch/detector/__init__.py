@@ -1,5 +1,6 @@
 """Batched AprilTag detector:
 
+  grayscale  -> color -> GRAY8 on device     (grayscale.py)
   threshold  -> adaptive tile threshold      (threshold.py)
   segment    -> label-propagation CCL        (segment.py)
   cluster    -> gradient clustering          (cluster.py)
@@ -9,8 +10,10 @@
   pipeline   -> batched detect()             (pipeline.py)
 
 Threshold, CCL and extraction run fused in kernel B1
-(``ops/ccl_extract.py``), run-length segmentation in kernel B2
-(``ops/segment_stats.py``). The package imports no submodule itself:
-``ops.ccl_extract`` builds its plain twin from the stage modules here, and
-``pipeline`` calls the kernel, so import the submodules directly.
+(``ops/ccl_extract.py``); at full resolution (``quad_decimate=1``) past
+B1's frame size, threshold and CCL run in kernel B3 (through B4) or B5
+(``ops/threshold_ccl.py``). Run-length segmentation is kernel B2
+(``ops/segment_stats.py``). The package imports no submodule itself: the
+``ops`` wrappers build their plain twins from the stage modules here, and
+``pipeline`` calls the kernels, so import the submodules directly.
 """

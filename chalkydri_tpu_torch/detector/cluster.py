@@ -5,7 +5,8 @@ white blob) pair (port of ``chalkydri_tpu/detector/cluster.py``).
   pair densely and packs position + direction into one int32 payload (the
   plain twin of kernel B1's epilogue),
 - ``compact_candidates`` keeps only the highest-ranked 128-candidate
-  blocks per direction, orientation-aligned,
+  blocks per direction, orientation-aligned (``extract_and_compact`` runs
+  both on ternary + label images, as the full-resolution path does),
 - ``cluster_candidates_batched`` sorts by a 26-bit hash of the label pair,
   segments the sorted runs (kernel B2, ``ops/segment_stats.py``), ranks
   the runs by direction diversity and gathers fixed-size point windows.
@@ -193,6 +194,15 @@ def compact_candidates(black, white, payload, width: int,
     return black, white, payload, dropped
 
 
+def extract_and_compact(tern: torch.Tensor, labels: torch.Tensor,
+                        max_points: int = MAX_EDGE_POINTS):
+    """Boundary extraction + block-sparse compaction of [B, H, W] ternary
+    + label images: ``(black, white, payload, dropped [B])``."""
+    black, white, payload = extract_boundary_points(tern, labels)
+    return compact_candidates(black, white, payload, tern.shape[2],
+                              max_points=max_points)
+
+
 def pair_hash(black: torch.Tensor, white: torch.Tensor) -> torch.Tensor:
     """The 26-bit (black, white) pair hash as int64: the low 26 bits of the
     int32 wrapping multiply-xor, exact in int64 because the low bits of a
@@ -253,6 +263,9 @@ def cluster_candidates_batched(
         + torch.clamp(cand_len, 0, (1 << 15) - 1),
         0,
     )
+    if max_clusters > rank.shape[1]:  # lax.top_k refuses this in JAX
+        raise ValueError(f"max_clusters={max_clusters} exceeds the "
+                         f"{rank.shape[1]} chunk winners of {n} sorted rows")
     top_sel = top_indices(rank, max_clusters)  # [B, K]
     top_rank = rank.gather(1, top_sel)
     top_start = cand_pos.gather(1, top_sel)
@@ -284,3 +297,21 @@ def cluster_candidates_batched(
     return Clusters(points=points, mask=in_seg, count=top_count.to(torch.int32),
                     valid=top_count >= min_points,
                     dropped=dropped.to(torch.int32))
+
+
+def gradient_clusters_batched(
+    tern: torch.Tensor,
+    labels: torch.Tensor,
+    max_points: int = MAX_EDGE_POINTS,
+    max_clusters: int = MAX_CLUSTERS,
+    cluster_points: int = MAX_CLUSTER_POINTS,
+    min_points: int = MIN_CLUSTER_POINTS,
+) -> Clusters:
+    """Clusters of [B, H, W] ternary + label images: extraction and
+    compaction, then ``cluster_candidates_batched``."""
+    black, white, payload, dropped = extract_and_compact(tern, labels,
+                                                         max_points)
+    return cluster_candidates_batched(
+        black, white, payload, max_points=max_points,
+        max_clusters=max_clusters, cluster_points=cluster_points,
+        min_points=min_points, dropped=dropped)

@@ -142,6 +142,7 @@ class Decoder(nn.Module):
 
 
 def make_decoder(family: TagFamily, bits_corrected: int = 2,
-                 device: str | torch.device = "cpu") -> Decoder:
-    """The family's ``Decoder`` with its tables on ``device``."""
+                 device: str | torch.device = "cuda") -> Decoder:
+    """The family's ``Decoder`` with its tables on ``device`` (the card
+    unless the caller asks for the CPU)."""
     return Decoder(family, bits_corrected).to(device)

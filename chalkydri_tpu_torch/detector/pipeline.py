@@ -1,11 +1,22 @@
 """The batched AprilTag detector: frames in, detections out (port of
 ``chalkydri_tpu/detector/pipeline.py``).
 
-One call runs decimate -> threshold + CCL + extraction (kernel B1) ->
-block compaction -> clustering (kernel B2) -> quad fit -> refine ->
-decode -> margin rank and per-id dedup for a whole batch of frames.
-Output is fixed-shape: MAX_DETECTIONS slots per frame, sorted by decision
-margin.
+One call runs decimate (``quad_decimate=2``) -> threshold + CCL +
+extraction -> block compaction -> clustering (kernel B2) -> quad fit ->
+refine -> decode -> margin rank and per-id dedup for a whole batch of
+frames. Threshold + CCL + extraction go by the quad-search frame's pixel
+count, as the JAX package's dispatch does:
+
+- at most ``EXTRACT_BLOCK_MAX_PIXELS``: the fused kernel B1;
+- at most ``SINGLE_BLOCK_MAX_PIXELS``: kernel B3 (threshold + ``ccl_iters``
+  CCL rounds, through B4), then ``extract_and_compact``;
+- larger: kernel B5 (threshold + CCL to the global fixed point, padded-flat
+  labels), then ``extract_and_compact``.
+
+The two constants are the JAX package's TPU budgets, kept here as
+semantics: B3 and B5 label differently, and label values feed the cluster
+hash. Output is fixed-shape: MAX_DETECTIONS slots per frame, sorted by
+decision margin.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from chalkydri_tpu_torch.detector.cluster import (
     MAX_EDGE_POINTS,
     cluster_candidates_batched,
     compact_candidates,
+    extract_and_compact,
     top_indices,
 )
 from chalkydri_tpu_torch.detector.decode import Decoder
@@ -33,9 +45,15 @@ from chalkydri_tpu_torch.detector.families import (
 from chalkydri_tpu_torch.detector.quad import fit_quads
 from chalkydri_tpu_torch.detector.refine import refine_quads
 from chalkydri_tpu_torch.ops.ccl_extract import threshold_ccl_extract
+from chalkydri_tpu_torch.ops.threshold_ccl import (
+    threshold_ccl,
+    threshold_ccl_exact,
+)
 from chalkydri_tpu_torch.utils.precision import full_fp32
 
 MAX_DETECTIONS = 16
+EXTRACT_BLOCK_MAX_PIXELS = 540_000  # B1 up to here
+SINGLE_BLOCK_MAX_PIXELS = 1_030_000  # B3 up to here, B5 beyond
 
 
 class Detections(NamedTuple):
@@ -49,11 +67,12 @@ class Detections(NamedTuple):
     dropped_points: torch.Tensor  # [B] int32, candidates lost to compaction
 
 
-def make_post_cluster(decode, refine: bool = True,
+def make_post_cluster(decode, refine: bool = True, quad_decimate: int = 2,
                       max_detections: int = MAX_DETECTIONS,
                       max_quad_candidates: int = 32):
     """``finish(gray [B, H, W], clusters) -> Detections``: quad fit -> keep
-    the best ``max_quad_candidates`` quads -> refine -> decode -> rank by
+    the best ``max_quad_candidates`` quads -> back to full-resolution
+    coordinates (``quad_decimate=2``) -> refine -> decode -> rank by
     decision margin -> per-id dedup -> compaction to ``max_detections``."""
 
     def finish(gray, clusters):
@@ -64,8 +83,9 @@ def make_post_cluster(decode, refine: bool = True,
         corners = quads.corners.gather(
             1, sel[..., None, None].expand(*sel.shape, 4, 2))
         q_valid = quads.valid.gather(1, sel)
-        # decimated pixel c sits at full-resolution coordinate 2c + 0.5
-        corners = corners * 2.0 + 0.5
+        if quad_decimate == 2:
+            # decimated pixel c sits at full-resolution coordinate 2c + 0.5
+            corners = corners * 2.0 + 0.5
         if refine:
             corners = refine_quads(gray, corners, q_valid)
         dec = decode(gray, corners, q_valid)
@@ -123,41 +143,86 @@ def decimate2(gray: torch.Tensor) -> torch.Tensor:
 
 class Detector(nn.Module):
     """``detector(gray_batch [B, H, W] uint8) -> Detections``. Quad search
-    runs at half resolution (``quad_decimate=2``); refine and decode
-    sample the full-resolution frames. The family tables live in the
-    ``decode`` submodule's buffers."""
+    runs at half resolution (``quad_decimate=2``) or at full resolution
+    (``quad_decimate=1``, no crop: H and W must be multiples of 4); refine
+    and decode sample the full-resolution frames. The family tables live
+    in the ``decode`` submodule's buffers.
+
+    ``capacity_fallback``: when a frame of the batch drops candidates to
+    the compaction budget (``dropped_points > 0``, one host read per call),
+    the batch runs again on a detector with twice ``max_edge_points``,
+    built on the first such call (``self.wide``). Clean frames never build
+    it and return the standard detections."""
 
     def __init__(self, family: str | TagFamily = DEFAULT_FAMILY,
                  bits_corrected: int = DEFAULT_BITS_CORRECTED,
                  max_detections: int = MAX_DETECTIONS, ccl_iters: int = 12,
-                 refine: bool = True, max_edge_points: int | None = None,
+                 refine: bool = True, quad_decimate: int = 2,
+                 max_edge_points: int | None = None,
                  max_clusters: int = MAX_CLUSTERS,
                  cluster_points: int = MAX_CLUSTER_POINTS,
-                 max_quad_candidates: int = 32):
+                 max_quad_candidates: int = 32,
+                 capacity_fallback: bool = False):
         super().__init__()
+        if quad_decimate not in (1, 2):
+            raise ValueError("quad_decimate must be 1 or 2")
         fam = load_family(family) if isinstance(family, str) else family
         self.decode = Decoder(fam, bits_corrected=bits_corrected)
         self.ccl_iters = ccl_iters
+        self.quad_decimate = quad_decimate
         self.edge_cap = (MAX_EDGE_POINTS if max_edge_points is None
                          else max_edge_points)
         self.max_clusters = max_clusters
         self.cluster_points = cluster_points
         self.finish = make_post_cluster(
-            self.decode, refine=refine, max_detections=max_detections,
+            self.decode, refine=refine, quad_decimate=quad_decimate,
+            max_detections=max_detections,
+            max_quad_candidates=max_quad_candidates)
+        self.capacity_fallback = capacity_fallback
+        self.wide = None
+        self._wide_kwargs = dict(
+            family=fam, bits_corrected=bits_corrected,
+            max_detections=max_detections, ccl_iters=ccl_iters, refine=refine,
+            quad_decimate=quad_decimate, max_edge_points=2 * self.edge_cap,
+            max_clusters=max_clusters, cluster_points=cluster_points,
             max_quad_candidates=max_quad_candidates)
 
+    def candidates(self, small: torch.Tensor):
+        """Quad-search frames [B, h, w] -> compacted candidates (black,
+        white, payload, dropped [B]), by the frame's pixel count."""
+        h, w = small.shape[1], small.shape[2]
+        if h * w <= EXTRACT_BLOCK_MAX_PIXELS:
+            black, white, payload = threshold_ccl_extract(small,
+                                                          iters=self.ccl_iters)
+            return compact_candidates(black, white, payload, width=w,
+                                      max_points=self.edge_cap)
+        if h * w <= SINGLE_BLOCK_MAX_PIXELS:
+            tern, labels = threshold_ccl(small, iters=self.ccl_iters)
+        else:
+            tern, labels = threshold_ccl_exact(small)
+        return extract_and_compact(tern, labels, max_points=self.edge_cap)
+
     @torch.no_grad()
-    def forward(self, gray_batch: torch.Tensor) -> Detections:
-        small = decimate2(gray_batch)
-        black, white, payload = threshold_ccl_extract(small, iters=self.ccl_iters)
-        black, white, payload, dropped = compact_candidates(
-            black, white, payload, width=small.shape[2],
-            max_points=self.edge_cap)
+    def detect(self, gray_batch: torch.Tensor) -> Detections:
+        """One run at this detector's candidate budget."""
+        small = (decimate2(gray_batch) if self.quad_decimate == 2
+                 else gray_batch.contiguous())
+        black, white, payload, dropped = self.candidates(small)
         clusters = cluster_candidates_batched(
             black, white, payload, max_points=self.edge_cap,
             max_clusters=self.max_clusters, cluster_points=self.cluster_points,
             dropped=dropped)
         return self.finish(gray_batch, clusters)
+
+    @torch.no_grad()
+    def forward(self, gray_batch: torch.Tensor) -> Detections:
+        out = self.detect(gray_batch)
+        if self.capacity_fallback and int(out.dropped_points.max()) > 0:
+            if self.wide is None:
+                device = next(self.decode.buffers()).device
+                self.wide = Detector(**self._wide_kwargs).to(device)
+            return self.wide.detect(gray_batch)
+        return out
 
 
 def make_detector(
@@ -171,16 +236,16 @@ def make_detector(
     max_clusters: int = MAX_CLUSTERS,
     cluster_points: int = MAX_CLUSTER_POINTS,
     max_quad_candidates: int = 32,
-    device: str | torch.device = "cpu",
+    capacity_fallback: bool = False,
+    device: str | torch.device = "cuda",
 ) -> Detector:
-    """Build the ``Detector`` on ``device``. ``quad_decimate=2`` is the only
-    setting this version supports."""
-    if quad_decimate != 2:
-        raise ValueError("only quad_decimate=2 is supported")
+    """Build the ``Detector`` on ``device`` (the card unless the caller
+    asks for the CPU)."""
     full_fp32()
     return Detector(
         family=family, bits_corrected=bits_corrected,
         max_detections=max_detections, ccl_iters=ccl_iters, refine=refine,
-        max_edge_points=max_edge_points, max_clusters=max_clusters,
-        cluster_points=cluster_points,
-        max_quad_candidates=max_quad_candidates).to(device)
+        quad_decimate=quad_decimate, max_edge_points=max_edge_points,
+        max_clusters=max_clusters, cluster_points=cluster_points,
+        max_quad_candidates=max_quad_candidates,
+        capacity_fallback=capacity_fallback).to(device)

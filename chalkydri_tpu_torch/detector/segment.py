@@ -1,5 +1,7 @@
 """Stage 2: connected-component labeling by label propagation, the plain
-twin of kernel B1's CCL (port of ``chalkydri_tpu/detector/segment.py``).
+twin of the CCL of kernels B1, B3 and B4, and with
+``label_components_exact`` of B5 (port of
+``chalkydri_tpu/detector/segment.py``).
 
 Every non-skip pixel starts with its flat index ``y * W + x`` as label
 (skip pixels: ``INVALID``). Each round is
@@ -122,6 +124,39 @@ def label_components(tern: torch.Tensor, iters: int = DEFAULT_ITERS,
     for _ in range(iters):
         labels = _round(labels, val, valid, masks)
     return labels.to(torch.int32)
+
+
+def padded_width(w: int) -> int:
+    """Row pitch of the exact labels: ``w`` rounded up to 128."""
+    return -(-w // 128) * 128
+
+
+def label_components_exact(tern: torch.Tensor) -> torch.Tensor:
+    """Labels at the global fixed point, the plain twin of kernel B5
+    (``chalkydri_tpu/ops/pallas/ccl_kernel.py::threshold_ccl_blocked``'s
+    labeling). Initial labels are flat indices in the lane-padded frame,
+    ``y * padded_width(W) + x``, and rounds repeat until one changes
+    nothing, so every component carries its raster-first pixel's padded
+    index. One host check per round: this version never runs on the
+    card's path.
+
+    tern: [B, H, W] uint8 in {0, 127, 255}. Returns [B, H, W] int32,
+    ``INVALID`` on skip pixels.
+    """
+    val = tern.to(torch.int32)
+    valid = tern != 127
+    masks = _connectivity_masks(val, valid)
+    _, h, w = tern.shape
+    dev = tern.device
+    flat = (torch.arange(h, dtype=torch.int64, device=dev)[:, None]
+            * padded_width(w)
+            + torch.arange(w, dtype=torch.int64, device=dev)[None, :])
+    labels = torch.where(valid, flat, INVALID)
+    while True:
+        nxt = _round(labels, val, valid, masks)
+        if torch.equal(nxt, labels):
+            return labels.to(torch.int32)
+        labels = nxt
 
 
 def labels_converged(tern: torch.Tensor, labels: torch.Tensor) -> bool:

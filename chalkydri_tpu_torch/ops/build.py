@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-Both sources compile with ``nvcc`` for Hopper (``sm_90a``) into ONE shared
+The sources compile with ``nvcc`` for Hopper (``sm_90a``) into ONE shared
 library with a plain C interface, loaded with ``ctypes``. The build runs
 on first use into ``chalkydri_tpu_torch/_build/`` (ignored by git) and is
-reused while the sources and flags hash the same. Nothing here runs at
-import time, so the package imports on machines without a CUDA toolkit.
+reused while the sources, the shared header and the flags hash the same.
+Nothing here runs at import time, so the package imports on machines
+without a CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ import subprocess
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("ccl_extract.cu", "segment_stats.cu")
+SOURCES = ("ccl_extract.cu", "segment_stats.cu", "threshold_ccl.cu")
+HEADERS = ("ccl_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +34,13 @@ _SIGNATURES = {
     # key, payload, B, n, tile_count, tile_first, t, cand_len, cand_pos,
     # stream
     "chalkydri_segment_stats": [_P, _P, _I, _I] + [_P] * 6,
+    # gray, B, H, W, min_diff, tile_min, tile_max, tern, stream
+    "chalkydri_threshold": [_P, _I, _I, _I, _I] + [_P] * 4,
+    # tern, B, H, W, iters, bits, labels, scratch, stream
+    "chalkydri_label_components": [_P, _I, _I, _I, _I] + [_P] * 4,
+    # gray, B, H, W, wp, min_diff, tile_min, tile_max, tern, parent,
+    # labels, stream
+    "chalkydri_threshold_ccl_exact": [_P, _I, _I, _I, _I, _I] + [_P] * 6,
 }
 
 
@@ -45,7 +54,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -55,20 +64,36 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libchalkydri_kernels_{_digest()}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails, after all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outputs = [p.communicate() for p in procs]
+    for p, (out, err) in zip(procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}\n{err}")
+
+
 def build() -> str:
     """Compile the kernels unless a library for these sources exists;
-    returns its path."""
+    returns its path. One nvcc per source, all started together, then one
+    link."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs = [f"{tmp}.{s}.o" for s in SOURCES]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC_DIR, s)]
+                  for s, o in zip(SOURCES, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, path)
     return path
 

@@ -24,6 +24,24 @@ from chalkydri_tpu_torch.ops import build
 MAX_SIDE = 4096  # one CUDA block per row/column holds a whole line
 
 
+def check_frames(x: torch.Tensor, name: str, tiles: bool = True) -> None:
+    """Raise unless ``x`` is a contiguous [B, H, W] uint8 CUDA tensor that
+    the CCL kernels take: sides at most ``MAX_SIDE`` (multiples of the
+    4-pixel tile when ``tiles``) and fewer than 2^31 pixels in all."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype != torch.uint8 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous [B, H, W] uint8")
+    b, h, w = x.shape
+    if (tiles and (h % 4 or w % 4)) or not (0 < h <= MAX_SIDE
+                                            and 0 < w <= MAX_SIDE):
+        raise ValueError(f"{name}: {h}x{w} frames must be "
+                         f"{'multiples of 4 and ' if tiles else ''}"
+                         f"at most {MAX_SIDE} a side")
+    if b * h * w >= 2 ** 31:
+        raise ValueError(f"{name}: batch too large")
+
+
 def threshold_ccl_extract_plain(gray: torch.Tensor, iters: int = 12,
                                 min_diff: int = MIN_WHITE_BLACK_DIFF):
     """Plain PyTorch version: threshold -> ``iters`` CCL rounds -> dense
@@ -40,17 +58,10 @@ def threshold_ccl_extract(gray: torch.Tensor, iters: int = 12,
     tensors take the plain twin."""
     if gray.device.type == "cpu":
         return threshold_ccl_extract_plain(gray, iters, min_diff)
-    if gray.device.type != "cuda":
-        raise ValueError(f"threshold_ccl_extract: unsupported device {gray.device}")
-    if gray.dtype != torch.uint8 or gray.dim() != 3 or not gray.is_contiguous():
-        raise ValueError("threshold_ccl_extract: expected contiguous "
-                         "[B, H, W] uint8")
+    check_frames(gray, "threshold_ccl_extract")
+    if iters < 0:
+        raise ValueError("threshold_ccl_extract: iters < 0")
     b, h, w = gray.shape
-    if h % 4 or w % 4 or not (0 < h <= MAX_SIDE and 0 < w <= MAX_SIDE):
-        raise ValueError(f"threshold_ccl_extract: {h}x{w} frames must be "
-                         f"multiples of 4 and at most {MAX_SIDE} a side")
-    if b * h * w >= 2 ** 31 or iters < 0:
-        raise ValueError("threshold_ccl_extract: batch too large or iters < 0")
     dev = gray.device
 
     def empty(shape, dtype):

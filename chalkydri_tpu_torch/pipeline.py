@@ -4,7 +4,7 @@
 Every camera's frame is one element of a leading batch axis; one ``step``
 call runs
 
-    grayscale frames [B, H, W]
+    grayscale frames [B, H, W] (or raw color, converted on device)
       -> AprilTag detect (threshold/CCL/cluster/quad/refine/decode)
       -> field-layout pose lookup per detected id
       -> lens unprojection of corners (per-camera intrinsics)
@@ -19,6 +19,7 @@ device; there are no weights.
 from __future__ import annotations
 
 import json
+import logging
 from typing import NamedTuple
 
 import numpy as np
@@ -29,6 +30,7 @@ from chalkydri_tpu_torch.detector.families import (
     DEFAULT_BITS_CORRECTED,
     DEFAULT_FAMILY,
 )
+from chalkydri_tpu_torch.detector.grayscale import to_gray_device
 from chalkydri_tpu_torch.detector.pipeline import (
     Detections,
     Detector,
@@ -104,22 +106,26 @@ def make_frame_solver(layout: FieldLayout, tag_size: float = TAG_SIZE,
 
 
 class VisionPipeline(nn.Module):
-    """``step(frames [B, H, W] uint8, gyro [B]) -> VisionOutput`` for a
-    fixed rig: the detector, the frame solver and the per-camera
-    intrinsics and robot->camera extrinsics (buffers)."""
+    """``step(frames, gyro [B]) -> VisionOutput`` for a fixed rig: the
+    detector, the frame solver and the per-camera intrinsics and
+    robot->camera extrinsics (buffers). Frames are [B, H, W] uint8 GREY,
+    or raw color in ``input_format``, converted on the frames' device
+    (``detector.grayscale.to_gray_device``)."""
 
     def __init__(self, detector: Detector, solver: FrameSolver,
-                 camera_params: torch.Tensor, robot_to_cam: SE3):
+                 camera_params: torch.Tensor, robot_to_cam: SE3,
+                 input_format: str = "GREY"):
         super().__init__()
         self.detector = detector
         self.solver = solver
+        self.input_format = input_format
         self.register_buffer("camera_params", camera_params.to(torch.float32))
         self.register_buffer("rc_rot", robot_to_cam.rotation.to(torch.float32))
         self.register_buffer("rc_t", robot_to_cam.translation.to(torch.float32))
 
     @torch.no_grad()
     def forward(self, frames: torch.Tensor, gyro: torch.Tensor) -> VisionOutput:
-        dets = self.detector(frames)
+        dets = self.detector(to_gray_device(frames, fourcc=self.input_format))
         res, n_tags = self.solver(dets, self.camera_params, self.rc_rot,
                                   self.rc_t, gyro.to(torch.float32))
         return VisionOutput(
@@ -144,22 +150,38 @@ def make_vision_pipeline(
     decision_margin_min: float = 0.0,
     refine: bool = True,
     detector_kwargs: dict | None = None,
-    device: str | torch.device = "cpu",
+    input_format: str = "GREY",
+    device: str | torch.device = "cuda",
 ) -> VisionPipeline:
-    """Build the rig's ``VisionPipeline`` with all its state on ``device``."""
+    """Build the rig's ``VisionPipeline`` with all its state on ``device``
+    (the card unless the caller asks for the CPU).
+
+    ``detector_kwargs`` go to ``make_detector``, less two keys that belong
+    to other layers, as in the JAX package: ``ccl_impl`` (the multi-card
+    spatial path's CCL choice) and ``capacity_fallback`` (a two-program
+    dispatch with a host read, which the fused step does not make; it
+    reports ``dropped_points`` instead)."""
+    dk = dict(detector_kwargs or {})
+    dk.pop("ccl_impl", None)
+    if dk.pop("capacity_fallback", False):
+        logging.getLogger(__name__).warning(
+            "capacity_fallback is not applicable inside the fused pipeline; "
+            "build make_detector(capacity_fallback=True) for the two-program "
+            "dispatch")
     detector = make_detector(family=family, bits_corrected=bits_corrected,
-                             refine=refine, **(detector_kwargs or {}))
+                             refine=refine, device=device, **dk)
     solver = make_frame_solver(layout, tag_size=tag_size, sign_flip=sign_flip,
                                decision_margin_min=decision_margin_min)
-    return VisionPipeline(detector, solver, camera_params,
-                          robot_to_cam).to(device)
+    return VisionPipeline(detector, solver, camera_params, robot_to_cam,
+                          input_format=input_format).to(device)
 
 
-def build_rig_from_config(cameras, layout: FieldLayout, device="cpu"):
+def build_rig_from_config(cameras, layout: FieldLayout, device="cuda"):
     """Per-camera parameter batches from config camera entries: dicts with
     a ``calib`` JSON string and ``robot_to_cam`` offsets (JSON string or
     dict), or objects with ``calib`` and ``cam_offsets`` (translation in
-    meters, rotation in degrees). Returns (params [B, 9], SE3 [B])."""
+    meters, rotation in degrees). Returns (params [B, 9], SE3 [B]) on
+    ``device`` (the card unless the caller asks for the CPU)."""
     params, rc_rots, rc_ts = [], [], []
     for cam in cameras:
         calib = cam.get("calib") if isinstance(cam, dict) else cam.calib
@@ -187,11 +209,12 @@ def build_rig_from_config(cameras, layout: FieldLayout, device="cpu"):
 
 
 def rig_from_numpy(tag_rotations, tag_translations, tag_present,
-                   camera_params, rc_rot, rc_t, device="cpu"):
+                   camera_params, rc_rot, rc_t, device="cuda"):
     """The rig from plain arrays (e.g. another implementation's layout and
     camera batch): tag tables [T, 3, 3] / [T, 3] / [T] bool, intrinsics
     [B, 9], robot->camera [B, 3, 3] / [B, 3]. Returns (FieldLayout,
-    params [B, 9] float32, SE3 [B] float32) on ``device``."""
+    params [B, 9] float32, SE3 [B] float32) on ``device`` (the card unless
+    the caller asks for the CPU)."""
 
     def f32(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)

@@ -1,0 +1,163 @@
+"""Stage cost map of the port's step on the card.
+
+    python -m chalkydri_tpu_torch.tools.perfprobe [--runs N]
+
+For each path of ``chip_smoke.py`` (``quad_decimate=2`` on the bench scene,
+``quad_decimate=1`` on the bench and the deployed scene, ``tools/scenes``)
+it prints, one line each:
+
+- every stage of the step alone, between two ``torch.cuda.synchronize()``:
+  host ms, median of N runs after a warm-up (decimation, the CCL kernel of
+  the path, extraction and compaction, clustering, the post-cluster tail,
+  unprojection + solve, the whole step);
+- a ``torch.profiler`` window over 3 steps: wall ms, the device kernel
+  time, the device's busy share and the kernel launches per step.
+
+The last line is a JSON object of the same numbers. Fails without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+
+import torch
+
+
+def _host_ms(fn, runs: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def stage_times(step, frames, gyro, runs: int) -> dict[str, float]:
+    """Host ms of each stage alone, by the detector's own dispatch."""
+    from chalkydri_tpu_torch.detector import pipeline as det_mod
+    from chalkydri_tpu_torch.detector.cluster import (
+        cluster_candidates_batched,
+        compact_candidates,
+        extract_and_compact,
+    )
+
+    det = step.detector
+    out = {}
+
+    def preprocess():
+        return (det_mod.decimate2(frames) if det.quad_decimate == 2
+                else frames.contiguous())
+
+    out["decimate"] = _host_ms(preprocess, runs)
+    small = preprocess()
+    h, w = small.shape[1], small.shape[2]
+    iters, cap = det.ccl_iters, det.edge_cap
+    if h * w <= det_mod.EXTRACT_BLOCK_MAX_PIXELS:
+        out["B1 threshold+CCL+extract"] = _host_ms(
+            lambda: det_mod.threshold_ccl_extract(small, iters=iters), runs)
+        cands = det_mod.threshold_ccl_extract(small, iters=iters)
+        out["compaction"] = _host_ms(
+            lambda: compact_candidates(*cands, width=w, max_points=cap), runs)
+    else:
+        name, ccl = (("B3 threshold+CCL", lambda: det_mod.threshold_ccl(
+                         small, iters=iters))
+                     if h * w <= det_mod.SINGLE_BLOCK_MAX_PIXELS else
+                     ("B5 threshold+exact CCL",
+                      lambda: det_mod.threshold_ccl_exact(small)))
+        out[name] = _host_ms(ccl, runs)
+        tern, labels = ccl()
+        out["extraction+compaction"] = _host_ms(
+            lambda: extract_and_compact(tern, labels, max_points=cap), runs)
+    black, white, payload, dropped = det.candidates(small)
+
+    def cluster():
+        return cluster_candidates_batched(
+            black, white, payload, max_points=cap,
+            max_clusters=det.max_clusters, cluster_points=det.cluster_points,
+            dropped=dropped)
+
+    out["clustering (sort + B2 + rank + windows)"] = _host_ms(cluster, runs)
+    clusters = cluster()
+    out["post-cluster tail"] = _host_ms(lambda: det.finish(frames, clusters),
+                                        runs)
+    dets = det.finish(frames, clusters)
+    out["unproject + solve"] = _host_ms(
+        lambda: step.solver(dets, step.camera_params, step.rc_rot, step.rc_t,
+                            gyro), runs)
+    out["whole step"] = _host_ms(lambda: step(frames, gyro), runs)
+    return out
+
+
+def device_share(step, frames, gyro, steps: int = 3) -> dict[str, float]:
+    """Wall ms, device kernel ms and launches per step under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step(frames, gyro)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            step(frames, gyro)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+                    for e in events if str(e.device_type).endswith("CUDA"))
+    launches = sum(e.count for e in events
+                   if e.key.startswith("cudaLaunchKernel"))
+    return {"wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_us / 1e3 / steps,
+            "busy_share": device_us / 1e3 / wall_ms,
+            "launches_per_step": launches / steps}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--runs", type=int, default=10)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("perfprobe: CUDA is not available")
+    import subprocess
+
+    from chalkydri_tpu_torch.pipeline import make_vision_pipeline
+    from chalkydri_tpu_torch.tools.scenes import load_scene
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda")
+    report = {"card": card}
+    for path, scene, qd in (("qd2 bench", "bench", 2), ("qd1 bench", "bench", 1),
+                            ("qd1 deployed", "deployed", 1)):
+        layout, params, rc, frames, poses = load_scene(scene, dev)
+        step = make_vision_pipeline(layout, params, rc, device=dev,
+                                    detector_kwargs={"quad_decimate": qd})
+        gyro = torch.tensor([p[2] for p in poses], dtype=torch.float32,
+                            device=dev)
+        stages = stage_times(step, frames, gyro, args.runs)
+        share = device_share(step, frames, gyro)
+        shape = "x".join(str(d) for d in frames.shape)
+        for name, ms in stages.items():
+            print(f"{path} {shape} {name}: {ms:.3f} ms", flush=True)
+        print(f"{path} profiler: {share['wall_ms_per_step']:.3f} ms wall, "
+              f"{share['device_ms_per_step']:.3f} ms device kernels, busy "
+              f"{100 * share['busy_share']:.2f} %, "
+              f"{share['launches_per_step']:.0f} launches per step [{card}]",
+              flush=True)
+        report[path] = {"shape": shape, "stages_ms": stages, **share}
+    print(json.dumps(report))
+
+
+if __name__ == "__main__":
+    main()

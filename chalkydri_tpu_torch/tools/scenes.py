@@ -1,0 +1,128 @@
+"""Rendered scenes for the card runs (``chip_smoke.py``, ``perfprobe``):
+tag36h11 tags 28-31 of the 2026 field layout (``examples/field_2026.json``,
+blue wall at x = 16.518 m, facing -x) seen by a pinhole camera mounted
+1 m up with no tilt, one known robot pose per camera, warped onto a
+uniform gray frame with numpy (float64 geometry, bilinear sampling).
+
+- ``"bench"``: 4 cameras of 1280x800, fx = fy = 1100, centered;
+- ``"deployed"``: the deployed rig, 2 cameras of 1600x1304, fx = fy =
+  1100, cx = 800, cy = 652.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+
+import numpy as np
+import torch
+
+FIELD_JSON = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "examples", "field_2026.json")
+TAGS = (28, 29, 30, 31)
+MOUNT = {"roll": 0, "pitch": 0, "yaw": 0, "x": 0, "y": 0, "z": 1.0}
+_LENS = {"fx": 1100.0, "fy": 1100.0, "k1": 0.0, "k2": 0.0, "p1": 0.0,
+         "p2": 0.0, "k3": 0.0}
+# One robot pose (x m, y m, yaw rad) per camera, so a slot mix-up shows.
+_POSES = ((13.0, 4.0215, 0.0), (12.9, 3.99, 0.015), (13.1, 4.06, -0.015),
+          (12.8, 3.95, 0.04))
+SCENES = {
+    "bench": (dict(_LENS, cx=640.0, cy=400.0, width=1280, height=800),
+              _POSES),
+    "deployed": (dict(_LENS, cx=800.0, cy=652.0, width=1600, height=1304),
+                 _POSES[:2]),
+}
+
+
+def homography(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """3x3 homography mapping 4 src points onto 4 dst points (DLT)."""
+    a, b = [], []
+    for (x, y), (u, v) in zip(src, dst):
+        a.append([x, y, 1, 0, 0, 0, -u * x, -u * y])
+        a.append([0, 0, 0, x, y, 1, -v * x, -v * y])
+        b += [u, v]
+    h = np.linalg.solve(np.asarray(a, np.float64), np.asarray(b, np.float64))
+    return np.append(h, 1.0).reshape(3, 3)
+
+
+def place_tag(canvas: np.ndarray, tag: np.ndarray, cell_px: int,
+              corners: np.ndarray) -> None:
+    """Warp a rendered tag (white border of one cell) onto the canvas so its
+    outer black-border corners (BL, BR, TR, TL) land on ``corners``:
+    inverse mapping with bilinear sampling; pixels that map outside the
+    tag image are left as they are."""
+    side = tag.shape[0]
+    b = cell_px
+    src = np.array([[b, side - b], [side - b, side - b], [side - b, b],
+                    [b, b]], np.float64) - 0.5
+    hinv = np.linalg.inv(homography(src, corners.astype(np.float64)))
+    x0, y0 = np.floor(corners.min(axis=0) - 2 * cell_px).astype(int)
+    x1, y1 = np.ceil(corners.max(axis=0) + 2 * cell_px).astype(int)
+    x0, y0 = max(x0, 0), max(y0, 0)
+    x1, y1 = min(x1, canvas.shape[1] - 1), min(y1, canvas.shape[0] - 1)
+    ys, xs = np.mgrid[y0:y1 + 1, x0:x1 + 1].astype(np.float64)
+    p = hinv @ np.stack([xs.ravel(), ys.ravel(), np.ones(xs.size)])
+    sx, sy = p[0] / p[2], p[1] / p[2]
+    inside = (sx >= 0) & (sx <= side - 1) & (sy >= 0) & (sy <= side - 1)
+    sx, sy = sx[inside], sy[inside]
+    ix = np.minimum(np.floor(sx).astype(int), side - 2)
+    iy = np.minimum(np.floor(sy).astype(int), side - 2)
+    fx, fy = sx - ix, sy - iy
+    t = tag.astype(np.float64)
+    val = ((t[iy, ix] * (1 - fx) + t[iy, ix + 1] * fx) * (1 - fy)
+           + (t[iy + 1, ix] * (1 - fx) + t[iy + 1, ix + 1] * fx) * fy)
+    rows = ys.ravel()[inside].astype(int)
+    cols = xs.ravel()[inside].astype(int)
+    canvas[rows, cols] = np.clip(np.rint(val), 0, 255).astype(np.uint8)
+
+
+def render_scene(layout, rig_rc, robot_x, robot_y, robot_yaw,
+                 calib: dict) -> np.ndarray:
+    """The camera's view of TAGS from a robot pose, on a
+    ``calib["height"] x calib["width"]`` uint8 frame."""
+    from chalkydri_tpu_torch.detector.families import load_family, render_tag
+    from chalkydri_tpu_torch.geometry.tags import corners_world
+
+    h, w = int(calib["height"]), int(calib["width"])
+    fam = load_family("tag36h11")
+    c, s = math.cos(robot_yaw), math.sin(robot_yaw)
+    w2r_rot = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1]])
+    w2r_t = -w2r_rot @ np.array([robot_x, robot_y, 0.0])
+    rc_rot = rig_rc.rotation[0].double().cpu().numpy()
+    rc_t = rig_rc.translation[0].double().cpu().numpy()
+    canvas = np.full((h, w), 150, np.uint8)
+    cell_px = 16
+    for tid in TAGS:
+        pose = layout.tag_pose(torch.tensor(tid))
+        pose = type(pose)(pose.rotation.double().cpu(),
+                          pose.translation.double().cpu())
+        cw = corners_world(pose).numpy()  # [4, 3]
+        pc = (rc_rot @ (w2r_rot @ cw.T + w2r_t[:, None])) + rc_t[:, None]
+        if not (pc[2] > 0.5).all():
+            raise AssertionError(f"tag {tid} is not in front of the camera")
+        pix = np.stack([calib["fx"] * pc[0] / pc[2] + calib["cx"],
+                        calib["fy"] * pc[1] / pc[2] + calib["cy"]], axis=1)
+        if not ((pix > 16).all() and (pix[:, 0] < w - 16).all()
+                and (pix[:, 1] < h - 16).all()):
+            raise AssertionError(f"tag {tid} is not inside the frame: {pix}")
+        place_tag(canvas, render_tag(fam, tid, cell_px=cell_px), cell_px, pix)
+    return canvas
+
+
+def load_scene(name: str, device):
+    """``(layout, params [B, 9], robot->camera SE3 [B], frames [B, H, W]
+    uint8, poses)`` of scene ``name`` on ``device``, the rig built through
+    ``build_rig_from_config`` as a user's config would."""
+    from chalkydri_tpu_torch.geometry.field_layout import load_field_layout
+    from chalkydri_tpu_torch.pipeline import build_rig_from_config
+
+    calib, poses = SCENES[name]
+    layout = load_field_layout(FIELD_JSON, dtype=torch.float32)
+    cams = [{"calib": json.dumps({"OpenCVModel5": calib}),
+             "robot_to_cam": json.dumps(MOUNT)}] * len(poses)
+    params, rc = build_rig_from_config(cams, layout, device=device)
+    frames = torch.from_numpy(np.stack(
+        [render_scene(layout, rc, *pose, calib) for pose in poses]))
+    return layout, params, rc, frames.to(device), poses

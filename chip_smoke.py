@@ -5,20 +5,31 @@
 1. prints the card (``nvidia-smi`` name and power limit) and fails without
    CUDA;
 2. builds the hand-written CUDA kernels from ``chalkydri_tpu_torch/csrc``;
-3. renders four 1280x800 frames of four tag36h11 tags of the 2026 field
-   layout (``examples/field_2026.json``) through the bench camera
-   (fx = fy = 1100, camera 1 m up, no tilt), one known robot pose per
-   frame, as a batch of 4 cameras;
-4. runs each kernel on the card at the main path's shapes against its
-   plain PyTorch twin on the same CUDA tensors (bit-identical required),
-   times both with CUDA events, and checks both again on edge cases (a
-   scene where the CCL round cap binds, noise, adversarial run layouts,
-   row counts under one tile and off the 128-row chunk);
-5. drives the port's main path (``build_rig_from_config`` ->
-   ``make_vision_pipeline(device="cuda")``) for a few steps with varying
-   gyro, checks the ids and each frame's pose against its own truth and
-   that every kernel of the path launched, and compares it with the same
-   step run on the plain twins only.
+3. renders the scenes of ``chalkydri_tpu_torch/tools/scenes.py``: the
+   bench scene, four 1280x800 frames of tag36h11 tags 28-31 of the 2026
+   field layout through the bench camera (fx = fy = 1100, camera 1 m up,
+   no tilt), one known robot pose per frame, as a batch of 4 cameras; and
+   the deployed scene, two 1600x1304 frames of the same tags through the
+   deployed geometry (fx = fy = 1100, cx = 800, cy = 652) from two robot
+   poses;
+4. runs each kernel on the card at its path's shapes against its plain
+   PyTorch twin on the same CUDA tensors (bit-identical required), times
+   both with CUDA events, and checks both again on edge cases (a scene
+   where the CCL round cap binds, noise, adversarial run layouts, row
+   counts under one tile and off the 128-row chunk): B1 and B2 at the
+   ``quad_decimate=2`` shapes, B3 and B4 at [4, 800, 1280], B5 at
+   [2, 1304, 1600];
+5. drives three paths through the entry points (``build_rig_from_config``
+   -> ``make_vision_pipeline``), each with the launch counts set to 0 just
+   before it and read just after: ``quad_decimate=2`` at 4 x 1280x800
+   (B1, B2), ``quad_decimate=1`` at 4 x 1280x800 (B3, B4, B2) and
+   ``quad_decimate=1`` at 2 x 1600x1304 (B5, B2). Each checks the ids and
+   each frame's pose against its own truth and that every kernel of the
+   path launched, compares the step with the same step run on the plain
+   twins only, and times both;
+6. checks the options: the bench scene as YUYV gives the GREY step's ids
+   and poses, and a flooded frame with a small ``max_edge_points`` drives
+   ``capacity_fallback`` to its second program.
 
 Every failed check raises (non-zero exit). The last three lines are a
 JSON kernel report, the ``nvidia-smi`` name and power limit line, and
@@ -28,7 +39,6 @@ JSON kernel report, the ``nvidia-smi`` name and power limit line, and
 from __future__ import annotations
 
 import json
-import math
 import os
 import statistics
 import subprocess
@@ -40,19 +50,27 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-H, W, BATCH = 800, 1280, 4
-CALIB = {"fx": 1100.0, "fy": 1100.0, "cx": W / 2, "cy": H / 2, "k1": 0.0,
-         "k2": 0.0, "p1": 0.0, "p2": 0.0, "k3": 0.0, "width": W, "height": H}
-MOUNT = {"roll": 0, "pitch": 0, "yaw": 0, "x": 0, "y": 0, "z": 1.0}
-TAGS = (28, 29, 30, 31)  # blue wall, x = 16.518 m, facing -x
-# One robot pose (x, y, yaw) per batch slot, so a slot mix-up shows.
-POSES = ((13.0, 4.0215, 0.0), (12.9, 3.99, 0.015), (13.1, 4.06, -0.015),
-         (12.8, 3.95, 0.04))
 GYRO_OFFSETS = (0.0, 0.01, -0.01, 0.02, -0.02)  # rad, one per step
 POSE_TOL_M = 0.02
 CORNER_TOL, POSE_TOL, YAW_TOL = 1e-3, 1e-3, 1e-3  # as the CPU parity tests
-TIMED_RUNS = 20
-STEPS = 5
+TIMED_RUNS = 20  # CUDA-event runs per kernel and twin
+STEPS = 5  # checked steps per path
+TIMED_STEPS = {"qd2": 20, "qd1": 10}  # host-clock steps per side and turn
+
+# The least time the card could take (H100 SXM datasheet figures):
+# bytes over the memory rate, operations over the
+# 32-bit non-tensor rate (67 T/s, the float32 figure, taken for the int32
+# compares and mins these kernels do).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# Operations per pixel the kernels' functions need: the tile threshold
+# (tile min/max, 3x3-tile dilation, classify), one CCL round (8 neighbor
+# mins + forward and backward run mins along rows and columns), the
+# extraction (8-neighbor speckle gate + 2 edge tests and selects), the
+# union-find (4 neighbor tests, their unions and the root walk); and per
+# element for the segment statistics (cumsum, run starts, run lengths,
+# chunk top-2).
+THRESH_OPS, ROUND_OPS, EXTRACT_OPS, UNION_FIND_OPS, SEGMENT_OPS = 6, 12, 16, 10, 8
 
 
 def card_line() -> str:
@@ -61,80 +79,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def homography(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
-    """3x3 homography mapping 4 src points onto 4 dst points (DLT)."""
-    a, b = [], []
-    for (x, y), (u, v) in zip(src, dst):
-        a.append([x, y, 1, 0, 0, 0, -u * x, -u * y])
-        a.append([0, 0, 0, x, y, 1, -v * x, -v * y])
-        b += [u, v]
-    h = np.linalg.solve(np.asarray(a, np.float64), np.asarray(b, np.float64))
-    return np.append(h, 1.0).reshape(3, 3)
-
-
-def place_tag(canvas: np.ndarray, tag: np.ndarray, cell_px: int,
-              corners: np.ndarray) -> None:
-    """Warp a rendered tag (white border of one cell) onto the canvas so its
-    outer black-border corners (BL, BR, TR, TL) land on ``corners``:
-    inverse mapping with bilinear sampling; pixels that map outside the
-    tag image are left as they are."""
-    side = tag.shape[0]
-    b = cell_px
-    src = np.array([[b, side - b], [side - b, side - b], [side - b, b],
-                    [b, b]], np.float64) - 0.5
-    hinv = np.linalg.inv(homography(src, corners.astype(np.float64)))
-    x0, y0 = np.floor(corners.min(axis=0) - 2 * cell_px).astype(int)
-    x1, y1 = np.ceil(corners.max(axis=0) + 2 * cell_px).astype(int)
-    x0, y0 = max(x0, 0), max(y0, 0)
-    x1, y1 = min(x1, canvas.shape[1] - 1), min(y1, canvas.shape[0] - 1)
-    ys, xs = np.mgrid[y0:y1 + 1, x0:x1 + 1].astype(np.float64)
-    p = hinv @ np.stack([xs.ravel(), ys.ravel(), np.ones(xs.size)])
-    sx, sy = p[0] / p[2], p[1] / p[2]
-    inside = (sx >= 0) & (sx <= side - 1) & (sy >= 0) & (sy <= side - 1)
-    sx, sy = sx[inside], sy[inside]
-    ix = np.minimum(np.floor(sx).astype(int), side - 2)
-    iy = np.minimum(np.floor(sy).astype(int), side - 2)
-    fx, fy = sx - ix, sy - iy
-    t = tag.astype(np.float64)
-    val = ((t[iy, ix] * (1 - fx) + t[iy, ix + 1] * fx) * (1 - fy)
-           + (t[iy + 1, ix] * (1 - fx) + t[iy + 1, ix + 1] * fx) * fy)
-    rows = ys.ravel()[inside].astype(int)
-    cols = xs.ravel()[inside].astype(int)
-    canvas[rows, cols] = np.clip(np.rint(val), 0, 255).astype(np.uint8)
-
-
-def render_scene(layout, rig_rc, robot_x, robot_y, robot_yaw):
-    """The camera's view of TAGS from a robot pose, float64 geometry."""
-    import torch
-
-    from chalkydri_tpu_torch.detector.families import load_family, render_tag
-    from chalkydri_tpu_torch.geometry.tags import corners_world
-
-    fam = load_family("tag36h11")
-    c, s = math.cos(robot_yaw), math.sin(robot_yaw)
-    w2r_rot = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1]])
-    w2r_t = -w2r_rot @ np.array([robot_x, robot_y, 0.0])
-    rc_rot = rig_rc.rotation[0].double().cpu().numpy()
-    rc_t = rig_rc.translation[0].double().cpu().numpy()
-    canvas = np.full((H, W), 150, np.uint8)
-    cell_px = 16
-    for tid in TAGS:
-        pose = layout.tag_pose(torch.tensor(tid))
-        pose = type(pose)(pose.rotation.double().cpu(),
-                          pose.translation.double().cpu())
-        cw = corners_world(pose).numpy()  # [4, 3]
-        pc = (rc_rot @ (w2r_rot @ cw.T + w2r_t[:, None])) + rc_t[:, None]
-        if not (pc[2] > 0.5).all():
-            raise AssertionError(f"tag {tid} is not in front of the camera")
-        pix = np.stack([CALIB["fx"] * pc[0] / pc[2] + CALIB["cx"],
-                        CALIB["fy"] * pc[1] / pc[2] + CALIB["cy"]], axis=1)
-        if not ((pix > 16).all() and (pix[:, 0] < W - 16).all()
-                and (pix[:, 1] < H - 16).all()):
-            raise AssertionError(f"tag {tid} is not inside the frame: {pix}")
-        place_tag(canvas, render_tag(fam, tid, cell_px=cell_px), cell_px, pix)
-    return canvas
 
 
 def cuda_times_ms(fn, runs: int = TIMED_RUNS) -> list[float]:
@@ -160,6 +104,29 @@ def max_abs_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
+def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+    """(least ms for the work, "bytes" or "operations", whichever bounds)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rounds_needed(tern, iters: int) -> int:
+    """CCL rounds this tern needs, at most ``iters`` (the Pallas kernels
+    stop at the fixed point), counted with the plain rounds."""
+    import torch
+
+    from chalkydri_tpu_torch.detector.segment import label_components
+
+    labels = label_components(tern, iters=0)
+    for r in range(iters):
+        nxt = label_components(tern, iters=1, labels0=labels)
+        if torch.equal(nxt, labels):
+            return r
+        labels = nxt
+    return iters
+
+
 class plain_twins:
     """Within this context the detector calls the kernels' plain twins on
     CUDA tensors (the module attributes its functions look up per call)."""
@@ -169,10 +136,18 @@ class plain_twins:
         import chalkydri_tpu_torch.detector.pipeline as det
         from chalkydri_tpu_torch.ops.ccl_extract import threshold_ccl_extract_plain
         from chalkydri_tpu_torch.ops.segment_stats import segment_stats_plain
+        from chalkydri_tpu_torch.ops.threshold_ccl import (
+            threshold_ccl_exact_plain,
+            threshold_ccl_plain,
+        )
 
         self._saved = [(det, "threshold_ccl_extract", det.threshold_ccl_extract),
+                       (det, "threshold_ccl", det.threshold_ccl),
+                       (det, "threshold_ccl_exact", det.threshold_ccl_exact),
                        (cluster, "segment_stats", cluster.segment_stats)]
         det.threshold_ccl_extract = threshold_ccl_extract_plain
+        det.threshold_ccl = threshold_ccl_plain
+        det.threshold_ccl_exact = threshold_ccl_exact_plain
         cluster.segment_stats = segment_stats_plain
         return self
 
@@ -193,8 +168,17 @@ def serpentine(h: int = 64, w: int = 128, stripes: int = 20) -> np.ndarray:
     return g
 
 
-def edge_cases(dev) -> None:
-    """Both kernels against their twins on inputs the bench scene does not
+def require_equal(label: str, names, got, want) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    for name, g, w in zip(names, got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{label}: {name} differs from its plain twin")
+
+
+def edge_cases(dev, shape) -> None:
+    """B1 and B2 against their twins on inputs the bench scene does not
     reach: a scene where the 12-round CCL cap binds, uniform noise at bench
     shape, and run layouts of one run, all invalid, single-element runs
     and random runs with an invalid tail, at 2048 rows and cut to 256 and
@@ -212,14 +196,12 @@ def edge_cases(dev) -> None:
 
     rng = np.random.default_rng(7)
     grays = [serpentine()[None],
-             rng.integers(0, 256, (BATCH, H // 2, W // 2), dtype=np.uint8)]
+             rng.integers(0, 256, shape, dtype=np.uint8)]
     for i, g in enumerate(grays):
         x = torch.from_numpy(g).to(dev)
-        for name, a, b in zip(("black", "white", "payload"),
-                              threshold_ccl_extract(x, iters=12),
-                              threshold_ccl_extract_plain(x, iters=12)):
-            if not torch.equal(a, b):
-                raise AssertionError(f"B1 case {i}: {name} differs")
+        require_equal(f"B1 case {i}", ("black", "white", "payload"),
+                      threshold_ccl_extract(x, iters=12),
+                      threshold_ccl_extract_plain(x, iters=12))
     n, int_max = 2048, 2 ** 31 - 1
     runs = np.sort(np.repeat(rng.integers(0, 1 << 30, 40), 45)[:n - 100])
     keys = np.stack([
@@ -229,17 +211,146 @@ def edge_cases(dev) -> None:
     payloads = rng.integers(0, 1 << 29, keys.shape, dtype=np.int32)
     k = torch.from_numpy(keys).to(dev)
     p = torch.from_numpy(payloads).to(dev)
-    for name, a, b in zip(("t", "cand_len", "cand_pos"), segment_stats(k, p),
-                          segment_stats_plain(k, p)):
-        if not torch.equal(a, b):
-            raise AssertionError(f"B2 adversarial layouts: {name} differs")
+    names = ("t", "cand_len", "cand_pos")
+    require_equal("B2 adversarial layouts", names, segment_stats(k, p),
+                  segment_stats_plain(k, p))
     for m in (256, 200):  # under one 1024-row tile, and off the 128 chunk
         km, pm = k[:, :m].contiguous(), p[:, :m].contiguous()
-        for name, a, b in zip(("t", "cand_len", "cand_pos"),
-                              segment_stats(km, pm),
-                              segment_stats_plain(km, pm)):
-            if not torch.equal(a, b):
-                raise AssertionError(f"B2 at n = {m}: {name} differs")
+        require_equal(f"B2 at n = {m}", names, segment_stats(km, pm),
+                      segment_stats_plain(km, pm))
+
+
+def check_path(label, outs, true_x, true_y) -> float:
+    """All four ids in every frame of every step, finite outputs, each
+    frame's pose within POSE_TOL_M of its truth; the largest error."""
+    import torch
+
+    from chalkydri_tpu_torch.tools.scenes import TAGS
+
+    for i, out in enumerate(outs):
+        for b in range(out.pose_x.shape[0]):
+            ids = sorted(out.detections.ids[b][out.detections.valid[b]].tolist())
+            if ids != sorted(TAGS):
+                raise AssertionError(f"{label} step {i} frame {b}: ids {ids}")
+        for name, v in (("pose_x", out.pose_x), ("pose_y", out.pose_y),
+                        ("pose_yaw", out.pose_yaw),
+                        ("std_devs", out.std_devs),
+                        ("corners", out.detections.corners)):
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"{label} step {i}: non-finite {name}")
+        err = torch.hypot(out.pose_x - true_x, out.pose_y - true_y)
+        if not (out.pose_valid.all() and (err <= POSE_TOL_M).all()):
+            raise AssertionError(f"{label} step {i}: pose error "
+                                 f"{err.tolist()} m, valid "
+                                 f"{out.pose_valid.tolist()}")
+    return max(float(torch.hypot(out.pose_x - true_x,
+                                 out.pose_y - true_y).max()) for out in outs)
+
+
+def compare_outputs(label, ref, other) -> None:
+    """Integer outputs equal, floats within the CPU parity tolerances."""
+    import torch
+
+    for name in ("ids", "hammings", "valid", "dropped_points"):
+        if not torch.equal(getattr(ref.detections, name),
+                           getattr(other.detections, name)):
+            raise AssertionError(f"{label}: {name} differs")
+    for name in ("tag_count", "pose_valid"):
+        if not torch.equal(getattr(ref, name), getattr(other, name)):
+            raise AssertionError(f"{label}: {name} differs")
+    valid = ref.detections.valid
+    checks = (
+        ("corners", ref.detections.corners[valid],
+         other.detections.corners[valid], CORNER_TOL),
+        ("pose_x", ref.pose_x, other.pose_x, POSE_TOL),
+        ("pose_y", ref.pose_y, other.pose_y, POSE_TOL),
+        ("pose_yaw", ref.pose_yaw, other.pose_yaw, YAW_TOL),
+    )
+    for name, a, b, tol in checks:
+        if float((a - b).abs().max()) > tol:
+            raise AssertionError(f"{label}: {name} differs")
+    m_a = ref.detections.decision_margins[valid]
+    m_b = other.detections.decision_margins[valid]
+    if not ((m_a - m_b).abs() <= 1e-3 * m_b.abs().clamp(min=1.0)).all():
+        raise AssertionError(f"{label}: decision margins differ")
+
+
+def drive_path(label, step, frames, true_xy_yaw, counters, expect, card,
+               timed_steps):
+    """The path through ``step``: launch counts from 0 over STEPS checked
+    steps, every expected kernel launched (and no other), ids and poses,
+    the twin-only step compared, then timed in turns (twins, kernels,
+    kernels, twins). Returns the launch counts."""
+    import torch
+
+    true_x, true_y, true_yaw = (torch.tensor(v, dtype=torch.float32,
+                                             device=frames.device)
+                                for v in zip(*true_xy_yaw))
+    gyros = [true_yaw + d for d in GYRO_OFFSETS]
+    for fn in counters.values():
+        fn.launches = 0
+    outs = [step(frames, g) for g in gyros[:STEPS]]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"{label}: {STEPS} steps, kernel launches {launches}", flush=True)
+    for name, n in launches.items():
+        if (n > 0) != (name in expect):
+            raise AssertionError(f"{label}: kernel {name} launched {n} times"
+                                 f" (expected on this path: {name in expect})")
+    pose_err = check_path(label, outs, true_x, true_y)
+    print(f"{label} poses: 4 ids in each of {frames.shape[0]} frames, each "
+          f"frame's pose against its own truth: max position error "
+          f"{pose_err:.5f} m, yaw {outs[0].pose_yaw.tolist()}", flush=True)
+
+    with plain_twins():
+        plain_out = step(frames, gyros[0])
+    compare_outputs(f"{label} vs plain twins", outs[0], plain_out)
+
+    def step_times(plain: bool) -> list[float]:
+        times = []
+        for i in range(timed_steps + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if plain:
+                with plain_twins():
+                    step(frames, gyros[i % STEPS])
+            else:
+                step(frames, gyros[i % STEPS])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return times[1:]
+
+    plain_a, kern_a = step_times(True), step_times(False)
+    kern_b, plain_b = step_times(False), step_times(True)
+    b, h, w = frames.shape[:3]
+    for kind, times in (("kernels", kern_a + kern_b),
+                        ("plain twins", plain_a + plain_b)):
+        med = statistics.median(times)
+        p75 = statistics.quantiles(times, n=4)[2]
+        print(f"{label} step {b}x{h}x{w} {kind}: median {med:.3f} ms "
+              f"({b / med * 1e3:.1f} frames/s), p75 {p75:.3f} ms, "
+              f"{len(times)} host-clock steps [{card}]", flush=True)
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                 bytes_moved, ops):
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    return {"name": name, "route": "cuda",
+            "source": f"chalkydri_tpu_torch/csrc/{source}",
+            "replaces": f"chalkydri_tpu/ops/pallas/{replaces}",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}  # no single PyTorch call computes these
+
+
+def time_pair(label, shape, card, kernel, plain):
+    """Median CUDA-event ms of the kernel's wrapper and of its twin."""
+    ms = statistics.median(cuda_times_ms(kernel))
+    plain_ms = statistics.median(cuda_times_ms(plain))
+    print(f"{label} {tuple(shape)}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bit-identical [{card}]", flush=True)
+    return ms, plain_ms
 
 
 def main() -> None:
@@ -259,8 +370,7 @@ def main() -> None:
         compact_candidates,
         sort_candidates,
     )
-    from chalkydri_tpu_torch.detector.pipeline import decimate2
-    from chalkydri_tpu_torch.geometry.field_layout import load_field_layout
+    from chalkydri_tpu_torch.detector.pipeline import decimate2, make_detector
     from chalkydri_tpu_torch.ops import build
     from chalkydri_tpu_torch.ops.ccl_extract import (
         threshold_ccl_extract,
@@ -270,165 +380,187 @@ def main() -> None:
         segment_stats,
         segment_stats_plain,
     )
-    from chalkydri_tpu_torch.pipeline import (
-        build_rig_from_config,
-        make_vision_pipeline,
+    from chalkydri_tpu_torch.ops.threshold_ccl import (
+        label_components_ccl,
+        threshold_ccl,
+        threshold_ccl_exact,
+        threshold_ccl_exact_plain,
+        threshold_ccl_plain,
     )
+    from chalkydri_tpu_torch.detector.segment import label_components
+    from chalkydri_tpu_torch.detector.threshold import adaptive_threshold
+    from chalkydri_tpu_torch.pipeline import make_vision_pipeline
+    from chalkydri_tpu_torch.tools.scenes import TAGS, load_scene
 
     t0 = time.perf_counter()
     build.kernel_library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{os.path.relpath(build.library_path(), ROOT)}", flush=True)
 
-    layout = load_field_layout(os.path.join(ROOT, "examples", "field_2026.json"),
-                               dtype=torch.float32)
-    cams = [{"calib": json.dumps({"OpenCVModel5": CALIB}),
-             "robot_to_cam": json.dumps(MOUNT)}] * BATCH
-    params, rc = build_rig_from_config(cams, layout)
-    frames = torch.from_numpy(np.stack(
-        [render_scene(layout, rc, *pose) for pose in POSES])).to(dev)
-    true_x, true_y, true_yaw = (torch.tensor(v, dtype=torch.float32,
-                                             device=dev) for v in zip(*POSES))
-    print(f"scene: {BATCH} x {H}x{W} u8, tags {list(TAGS)}, robot poses "
-          f"(x, y, yaw) {list(POSES)}", flush=True)
+    layout, params, rc, frames, poses = load_scene("bench", dev)
+    _, dep_params, dep_rc, dep_frames, dep_poses = load_scene("deployed", dev)
+    for label, f, p in (("scene", frames, poses),
+                        ("deployed scene", dep_frames, dep_poses)):
+        print(f"{label}: {f.shape[0]} x {f.shape[1]}x{f.shape[2]} u8, tags "
+              f"{list(TAGS)}, robot poses (x, y, yaw) {list(p)}", flush=True)
 
     # -- kernel phases: each kernel against its plain twin, same tensors --
     small = decimate2(frames)
     got = threshold_ccl_extract(small, iters=12)
     want = threshold_ccl_extract_plain(small, iters=12)
-    torch.cuda.synchronize()
-    for name, g, w in zip(("black", "white", "payload"), got, want):
-        if not torch.equal(g, w):
-            raise AssertionError(f"B1 {name} differs from its plain twin")
+    require_equal("B1", ("black", "white", "payload"), got, want)
     b1_err = max_abs_err(got, want)
-    b1_ms = statistics.median(cuda_times_ms(
-        lambda: threshold_ccl_extract(small, iters=12)))
-    b1_plain_ms = statistics.median(cuda_times_ms(
-        lambda: threshold_ccl_extract_plain(small, iters=12)))
-    print(f"B1 threshold_ccl_extract {tuple(small.shape)}: kernel "
-          f"{b1_ms:.4f} ms, plain {b1_plain_ms:.4f} ms, bit-identical "
-          f"[{card}]", flush=True)
+    b1_ms, b1_plain_ms = time_pair(
+        "B1 threshold_ccl_extract", small.shape, card,
+        lambda: threshold_ccl_extract(small, iters=12),
+        lambda: threshold_ccl_extract_plain(small, iters=12))
+    b1_px = small.numel()
+    b1_rounds = rounds_needed(adaptive_threshold(small), 12)
 
     black, white, payload, _ = compact_candidates(
         *got, width=small.shape[2], max_points=MAX_EDGE_POINTS)
     s_key, s_payload = sort_candidates(black, white, payload, MAX_EDGE_POINTS)
     got2 = segment_stats(s_key, s_payload)
     want2 = segment_stats_plain(s_key, s_payload)
-    torch.cuda.synchronize()
-    for name, g, w in zip(("t", "cand_len", "cand_pos"), got2, want2):
-        if not torch.equal(g, w):
-            raise AssertionError(f"B2 {name} differs from its plain twin")
+    require_equal("B2", ("t", "cand_len", "cand_pos"), got2, want2)
     b2_err = max_abs_err(got2, want2)
-    b2_ms = statistics.median(cuda_times_ms(
-        lambda: segment_stats(s_key, s_payload)))
-    b2_plain_ms = statistics.median(cuda_times_ms(
-        lambda: segment_stats_plain(s_key, s_payload)))
-    print(f"B2 segment_stats {tuple(s_key.shape)}: kernel {b2_ms:.4f} ms, "
-          f"plain {b2_plain_ms:.4f} ms, bit-identical [{card}]", flush=True)
+    b2_ms, b2_plain_ms = time_pair(
+        "B2 segment_stats", s_key.shape, card,
+        lambda: segment_stats(s_key, s_payload),
+        lambda: segment_stats_plain(s_key, s_payload))
+    b2_n = s_key.numel()
 
-    edge_cases(dev)
+    edge_cases(dev, tuple(small.shape))
     print("edge cases: B1 and B2 bit-identical to their twins where the CCL "
           "round cap binds, on noise, on adversarial run layouts, and at "
-          "n = 256 and 200 rows",
+          "n = 256 and 200 rows", flush=True)
+
+    # B3 and B4 at the qd=1 bench shape, and where the round cap binds.
+    got3 = threshold_ccl(frames, iters=12)
+    want3 = threshold_ccl_plain(frames, iters=12)
+    require_equal("B3", ("tern", "labels"), got3, want3)
+    b3_err = max_abs_err(got3, want3)
+    tern3 = got3[0]
+    got4 = label_components_ccl(tern3, iters=12)
+    want4 = label_components(tern3, iters=12)
+    require_equal("B4", ("labels",), (got4,), (want4,))
+    b4_err = max_abs_err((got4,), (want4,))
+    serp = torch.from_numpy(serpentine()[None]).to(dev)
+    require_equal("B3 serpentine", ("tern", "labels"),
+                  threshold_ccl(serp, iters=12),
+                  threshold_ccl_plain(serp, iters=12))
+    require_equal("B4 serpentine", ("labels",),
+                  (label_components_ccl(serp, iters=12),),
+                  (label_components(serp, iters=12),))
+    b3_ms, b3_plain_ms = time_pair(
+        "B3 threshold_ccl", frames.shape, card,
+        lambda: threshold_ccl(frames, iters=12),
+        lambda: threshold_ccl_plain(frames, iters=12))
+    b4_ms, b4_plain_ms = time_pair(
+        "B4 label_components_ccl", tern3.shape, card,
+        lambda: label_components_ccl(tern3, iters=12),
+        lambda: label_components(tern3, iters=12))
+    b3_px = frames.numel()
+    b3_rounds = rounds_needed(tern3, 12)
+    print(f"B3/B4 serpentine: bit-identical where the 12-round cap binds; "
+          f"bench scene needs {b3_rounds} of 12 rounds", flush=True)
+
+    # B5 at the deployed shape, and on the serpentine.
+    got5 = threshold_ccl_exact(dep_frames)
+    want5 = threshold_ccl_exact_plain(dep_frames)
+    require_equal("B5", ("tern", "labels"), got5, want5)
+    b5_err = max_abs_err(got5, want5)
+    serp_exact = threshold_ccl_exact(serp)
+    require_equal("B5 serpentine", ("tern", "labels"), serp_exact,
+                  threshold_ccl_exact_plain(serp))
+    if len(torch.unique(serp_exact[1][serp == 255])) != 1:
+        raise AssertionError("B5 serpentine: the snake has more than 1 label")
+    b5_ms, b5_plain_ms = time_pair(
+        "B5 threshold_ccl_exact", dep_frames.shape, card,
+        lambda: threshold_ccl_exact(dep_frames),
+        lambda: threshold_ccl_exact_plain(dep_frames))
+    b5_px = dep_frames.numel()
+    print("B5 serpentine: bit-identical, the whole snake one label",
           flush=True)
 
-    # -- main path through the entry points, kernels counted --------------
+    # -- the paths through the entry points, kernels counted --------------
+    counters = {"threshold_ccl_extract": threshold_ccl_extract,
+                "segment_stats": segment_stats,
+                "threshold_ccl": threshold_ccl,
+                "label_components_ccl": label_components_ccl,
+                "threshold_ccl_exact": threshold_ccl_exact}
     step = make_vision_pipeline(layout, params, rc, device=dev)
-    gyros = [true_yaw + d for d in GYRO_OFFSETS]
-    threshold_ccl_extract.launches = 0
-    segment_stats.launches = 0
-    outs = [step(frames, g) for g in gyros[:STEPS]]
+    qd2 = drive_path("qd2 main path", step, frames, poses, counters,
+                     ("threshold_ccl_extract", "segment_stats"), card,
+                     TIMED_STEPS["qd2"])
+    step_qd1 = make_vision_pipeline(layout, params, rc, device=dev,
+                                    detector_kwargs={"quad_decimate": 1})
+    qd1 = drive_path("qd1 bench path", step_qd1, frames, poses, counters,
+                     ("threshold_ccl", "label_components_ccl",
+                      "segment_stats"), card, TIMED_STEPS["qd1"])
+    step_dep = make_vision_pipeline(layout, dep_params, dep_rc, device=dev,
+                                    detector_kwargs={"quad_decimate": 1})
+    dep = drive_path("qd1 deployed path", step_dep, dep_frames, dep_poses,
+                     counters, ("threshold_ccl_exact", "segment_stats"), card,
+                     TIMED_STEPS["qd1"])
+
+    # -- options -----------------------------------------------------------
+    gyro0 = torch.tensor([p[2] for p in poses], dtype=torch.float32,
+                         device=dev)
+    chroma = torch.randint(0, 256, frames.shape, dtype=torch.uint8,
+                           device=dev,
+                           generator=torch.Generator(dev).manual_seed(3))
+    b, h, w = frames.shape
+    yuyv = torch.stack([frames, chroma], dim=-1).reshape(b, h, 2 * w)
+    step_yuyv = make_vision_pipeline(layout, params, rc, device=dev,
+                                     input_format="YUYV")
+    compare_outputs("YUYV step vs GREY step", step(frames, gyro0),
+                    step_yuyv(yuyv, gyro0))
+    rng = np.random.default_rng(11)
+    flood = np.clip(frames[:1].cpu().numpy()
+                    + rng.normal(0, 6, (1, h, w)), 0, 255).astype(np.uint8)
+    det = make_detector(max_edge_points=4096, capacity_fallback=True,
+                        device=dev)
+    first = det.detect(torch.from_numpy(flood).to(dev))
+    out = det(torch.from_numpy(flood).to(dev))
     torch.cuda.synchronize()
-    launches = {"threshold_ccl_extract": threshold_ccl_extract.launches,
-                "segment_stats": segment_stats.launches}
-    print(f"main path: {STEPS} steps, kernel launches {launches}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
+    if not (int(first.dropped_points.max()) > 0 and det.wide is not None
+            and det.wide.edge_cap == 8192
+            and torch.isfinite(out.corners).all()):
+        raise AssertionError("capacity_fallback did not run its second "
+                             "program on the flooded frame")
+    print(f"options: YUYV step gives the GREY step's ids and poses; "
+          f"flooded frame dropped {int(first.dropped_points.max())} of "
+          f"4,096 -> second program (8,192) dropped "
+          f"{int(out.dropped_points.max())}, ids "
+          f"{out.ids[0][out.valid[0]].tolist()}", flush=True)
 
-    for i, out in enumerate(outs):
-        for b in range(BATCH):
-            ids = sorted(out.detections.ids[b][out.detections.valid[b]].tolist())
-            if ids != sorted(TAGS):
-                raise AssertionError(f"step {i} frame {b}: ids {ids}")
-        for name, v in (("pose_x", out.pose_x), ("pose_y", out.pose_y),
-                        ("pose_yaw", out.pose_yaw),
-                        ("std_devs", out.std_devs),
-                        ("corners", out.detections.corners)):
-            if not torch.isfinite(v).all():
-                raise AssertionError(f"step {i}: non-finite {name}")
-        err = torch.hypot(out.pose_x - true_x, out.pose_y - true_y)
-        if not (out.pose_valid.all() and (err <= POSE_TOL_M).all()):
-            raise AssertionError(f"step {i}: pose error {err.tolist()} m, "
-                                 f"valid {out.pose_valid.tolist()}")
-    pose_err = max(float(torch.hypot(out.pose_x - true_x,
-                                     out.pose_y - true_y).max())
-                   for out in outs)
-    print(f"poses: 4 ids in each of {BATCH} frames, each frame's pose "
-          f"against its own truth: max position error {pose_err:.5f} m, "
-          f"yaw {outs[0].pose_yaw.tolist()}", flush=True)
-
-    with plain_twins():
-        plain_out = step(frames, gyros[0])
-    ref = outs[0]
-    for name in ("ids", "hammings", "valid", "dropped_points"):
-        if not torch.equal(getattr(ref.detections, name),
-                           getattr(plain_out.detections, name)):
-            raise AssertionError(f"main path {name} differs from plain twins")
-    for name in ("tag_count", "pose_valid"):
-        if not torch.equal(getattr(ref, name), getattr(plain_out, name)):
-            raise AssertionError(f"main path {name} differs from plain twins")
-    valid = ref.detections.valid
-    checks = (
-        ("corners", ref.detections.corners[valid],
-         plain_out.detections.corners[valid], CORNER_TOL),
-        ("pose_x", ref.pose_x, plain_out.pose_x, POSE_TOL),
-        ("pose_y", ref.pose_y, plain_out.pose_y, POSE_TOL),
-        ("pose_yaw", ref.pose_yaw, plain_out.pose_yaw, YAW_TOL),
-    )
-    for name, a, b, tol in checks:
-        if float((a - b).abs().max()) > tol:
-            raise AssertionError(f"main path {name} differs from plain twins")
-    m_a = ref.detections.decision_margins[valid]
-    m_b = plain_out.detections.decision_margins[valid]
-    if not ((m_a - m_b).abs() <= 1e-3 * m_b.abs().clamp(min=1.0)).all():
-        raise AssertionError("main path decision margins differ from plain twins")
-
-    def step_times(plain: bool) -> list[float]:
-        times = []
-        for i in range(TIMED_RUNS + 1):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            if plain:
-                with plain_twins():
-                    step(frames, gyros[i % STEPS])
-            else:
-                step(frames, gyros[i % STEPS])
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        return times[1:]
-
-    plain_a, kern_a = step_times(True), step_times(False)
-    kern_b, plain_b = step_times(False), step_times(True)
-    for label, times in (("kernels", kern_a + kern_b),
-                         ("plain twins", plain_a + plain_b)):
-        med = statistics.median(times)
-        p75 = statistics.quantiles(times, n=4)[2]
-        print(f"step {BATCH}x{H}x{W} {label}: median {med:.3f} ms "
-              f"({BATCH / med * 1e3:.1f} frames/s), p75 {p75:.3f} ms, "
-              f"{len(times)} host-clock steps [{card}]", flush=True)
-
+    pages = 3 * 4 * 2  # three int32 candidate pages per direction pair
     report = [
-        {"name": "threshold_ccl_extract", "route": "cuda",
-         "source": "chalkydri_tpu_torch/csrc/ccl_extract.cu",
-         "replaces": "chalkydri_tpu/ops/pallas/ccl_kernel.py:572",
-         "launches": launches["threshold_ccl_extract"],
-         "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms},
-        {"name": "segment_stats", "route": "cuda",
-         "source": "chalkydri_tpu_torch/csrc/segment_stats.cu",
-         "replaces": "chalkydri_tpu/ops/pallas/segment_kernel.py:182",
-         "launches": launches["segment_stats"],
-         "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain_ms},
+        kernel_entry("threshold_ccl_extract", "ccl_extract.cu",
+                     "ccl_kernel.py:572",
+                     qd2["threshold_ccl_extract"], b1_err, b1_ms, b1_plain_ms,
+                     b1_px * (1 + pages),
+                     b1_px * (THRESH_OPS + b1_rounds * ROUND_OPS
+                              + EXTRACT_OPS)),
+        kernel_entry("segment_stats", "segment_stats.cu",
+                     "segment_kernel.py:182",
+                     qd2["segment_stats"], b2_err, b2_ms, b2_plain_ms,
+                     b2_n * 12 + 2 * (2 * b2_n // 128) * 4,
+                     b2_n * SEGMENT_OPS),
+        kernel_entry("threshold_ccl", "threshold_ccl.cu", "ccl_kernel.py:770",
+                     qd1["threshold_ccl"], b3_err, b3_ms, b3_plain_ms,
+                     b3_px * (1 + 1 + 4),
+                     b3_px * (THRESH_OPS + b3_rounds * ROUND_OPS)),
+        kernel_entry("label_components_ccl", "threshold_ccl.cu",
+                     "ccl_kernel.py:745",
+                     qd1["label_components_ccl"], b4_err, b4_ms, b4_plain_ms,
+                     b3_px * (1 + 4), b3_px * b3_rounds * ROUND_OPS),
+        kernel_entry("threshold_ccl_exact", "threshold_ccl.cu",
+                     "ccl_kernel.py:1544",
+                     dep["threshold_ccl_exact"], b5_err, b5_ms, b5_plain_ms,
+                     b5_px * (1 + 1 + 4),
+                     b5_px * (THRESH_OPS + UNION_FIND_OPS)),
     ]
     print(json.dumps({"kernels": report}))
     print(card_line())

@@ -3,12 +3,18 @@
 frames and the same rig constants (built once in JAX, carried across with
 ``rig_from_numpy``).
 
+The same comparison runs with ``quad_decimate=1`` (full-resolution quad
+search) on each branch of the port's dispatch by pixel count, reached by
+lowering the port's two dispatch constants; JAX on the CPU takes its
+capped-CCL jnp path on every branch.
+
 Integer outputs must be equal. Float tolerances: float32 operations run in
 a different order in XLA-CPU and in torch (the quad fit's weighted sums,
 refine's line fits, the solver's Jacobi sweeps and Newton steps), and the
 JAX side runs under the suite's x64 mode with float32 inputs."""
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -26,6 +32,9 @@ from chalkydri_tpu.geometry.camera import OpenCVModel5 as JCam
 from chalkydri_tpu.geometry.tags import corners_world as jax_corners_world
 from chalkydri_tpu.pipeline import build_rig_from_config as jax_build_rig
 from chalkydri_tpu.pipeline import make_vision_pipeline as jax_pipeline
+from chalkydri_tpu_torch.detector import pipeline as tdet
+from chalkydri_tpu_torch.detector.segment import label_components, labels_converged
+from chalkydri_tpu_torch.detector.threshold import adaptive_threshold
 from chalkydri_tpu_torch.geometry.field_layout import parse_field_layout
 from chalkydri_tpu_torch.pipeline import (
     build_rig_from_config,
@@ -80,22 +89,28 @@ def _render(layout, rc, robot_xy, robot_yaw):
 
 
 @pytest.fixture(scope="module")
-def slice_outputs():
+def scene():
+    """The rig in JAX and carried across to the port, the frames and the
+    gyro."""
     layout_j = jax_parse_layout(_layout_json(), dtype=jnp.float32)
     params_j, rc_j = jax_build_rig(CAMS, layout_j)
     rc_one = jax_rc(0, 0, 1.0, 0, 0, 0, dtype=jnp.float32)
     frames = np.stack([_render(layout_j, rc_one, xy, yaw) for xy, yaw in POSES])
     gyro = np.array([yaw for _, yaw in POSES], np.float32)
-
-    want = jax_pipeline(layout_j, params_j, rc_j)(jnp.asarray(frames),
-                                                  jnp.asarray(gyro))
-    layout_t, params_t, rc_t = rig_from_numpy(
+    rig_t = rig_from_numpy(
         np.asarray(layout_j.rotations), np.asarray(layout_j.translations),
         np.asarray(layout_j.present), np.asarray(params_j),
-        np.asarray(rc_j.rotation), np.asarray(rc_j.translation))
-    step = make_vision_pipeline(layout_t, params_t, rc_t, device="cpu")
+        np.asarray(rc_j.rotation), np.asarray(rc_j.translation), device="cpu")
+    return (layout_j, params_j, rc_j), rig_t, frames, gyro
+
+
+@pytest.fixture(scope="module")
+def slice_outputs(scene):
+    rig_j, rig_t, frames, gyro = scene
+    want = jax_pipeline(*rig_j)(jnp.asarray(frames), jnp.asarray(gyro))
+    step = make_vision_pipeline(*rig_t, device="cpu")
     got = step(torch.from_numpy(frames), torch.from_numpy(gyro))
-    return want, got, (layout_j, params_j, rc_j)
+    return want, got, rig_j
 
 
 def test_integer_outputs_equal(slice_outputs):
@@ -150,12 +165,135 @@ def test_port_rig_builder_reproduces_jax_rig(slice_outputs):
     np.testing.assert_array_equal(layout_t.present.numpy(),
                                   np.asarray(layout_j.present))
     assert layout_t.field_size == layout_j.field_size
-    params_t, rc_t = build_rig_from_config(CAMS, layout_t)
+    params_t, rc_t = build_rig_from_config(CAMS, layout_t, device="cpu")
     np.testing.assert_array_equal(params_t.numpy(), np.asarray(params_j))
     np.testing.assert_allclose(rc_t.rotation.numpy(), np.asarray(rc_j.rotation),
                                atol=1e-6)
     np.testing.assert_allclose(rc_t.translation.numpy(),
                                np.asarray(rc_j.translation), atol=1e-6)
+
+
+def _assert_equal_fields(got, want, names):
+    for name in names:
+        g = getattr(got.detections, name, None)
+        if g is None:
+            g, w = getattr(got, name), getattr(want, name)
+        else:
+            w = getattr(want.detections, name)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+
+
+def _assert_floats_close(got, want):
+    valid = np.asarray(want.detections.valid)
+    np.testing.assert_allclose(got.detections.corners.numpy()[valid],
+                               np.asarray(want.detections.corners)[valid],
+                               atol=CORNER_TOL, rtol=0)
+    for name in ("pose_x", "pose_y"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   atol=POSE_TOL, rtol=0, err_msg=name)
+    np.testing.assert_allclose(got.pose_yaw.numpy(), np.asarray(want.pose_yaw),
+                               atol=YAW_TOL, rtol=0)
+
+
+# Dispatch branch -> (EXTRACT_BLOCK_MAX_PIXELS, SINGLE_BLOCK_MAX_PIXELS,
+# the kernel wrapper it calls); None keeps the port's constant. A 480x640
+# frame (307,200 px) takes the B1 branch with the constants as they are.
+BRANCHES = {
+    "B1": (None, None, "threshold_ccl_extract"),
+    "B3": (0, None, "threshold_ccl"),
+    "B5": (0, 0, "threshold_ccl_exact"),
+}
+_WRAPPERS = ("threshold_ccl_extract", "threshold_ccl", "threshold_ccl_exact")
+
+
+@pytest.fixture(scope="module")
+def qd1_outputs(scene):
+    rig_j, rig_t, frames, gyro = scene
+    kw = {"quad_decimate": 1}
+    want = jax_pipeline(*rig_j, detector_kwargs=kw)(jnp.asarray(frames),
+                                                    jnp.asarray(gyro))
+    step = make_vision_pipeline(*rig_t, detector_kwargs=kw, device="cpu")
+    got, called = {}, {}
+    for branch, (extract_max, single_max, _) in BRANCHES.items():
+        calls = []
+        with pytest.MonkeyPatch.context() as mp:
+            for name, value in (("EXTRACT_BLOCK_MAX_PIXELS", extract_max),
+                                ("SINGLE_BLOCK_MAX_PIXELS", single_max)):
+                if value is not None:
+                    mp.setattr(tdet, name, value)
+            for name in _WRAPPERS:
+                fn = getattr(tdet, name)
+                mp.setattr(tdet, name, lambda *a, _fn=fn, _name=name, **k: (
+                    calls.append(_name), _fn(*a, **k))[1])
+            got[branch] = step(torch.from_numpy(frames), torch.from_numpy(gyro))
+        called[branch] = calls
+    return want, got, called
+
+
+@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def test_qd1_dispatch_reaches_each_branch(qd1_outputs, branch):
+    _, _, called = qd1_outputs
+    assert called[branch] == [BRANCHES[branch][2]]
+
+
+@pytest.mark.parametrize("branch", ["B1", "B3"])
+def test_qd1_capped_branches_equal_jax(qd1_outputs, branch):
+    want, got, _ = qd1_outputs
+    _assert_equal_fields(got[branch], want, ("ids", "hammings", "valid",
+                                             "dropped_points", "tag_count",
+                                             "pose_valid"))
+    _assert_floats_close(got[branch], want)
+
+
+def test_qd1_exact_branch_matches_capped_jax_on_a_converging_scene(
+        scene, qd1_outputs):
+    """B5's labels are fixed-point, padded-flat ones, JAX's here capped
+    flat ones: on a scene where 12 rounds converge both name the same
+    components, so the detections agree."""
+    _, _, frames, _ = scene
+    tern = adaptive_threshold(torch.from_numpy(frames))
+    assert labels_converged(tern, label_components(tern, iters=12))
+    want, got, _ = qd1_outputs
+    _assert_equal_fields(got["B5"], want, ("ids", "hammings", "valid",
+                                           "tag_count", "pose_valid"))
+    _assert_floats_close(got["B5"], want)
+
+
+def test_qd1_all_recover_the_true_pose(qd1_outputs):
+    want, got, _ = qd1_outputs
+    for out in (want, *got.values()):
+        for b, ((x, y), yaw) in enumerate(POSES):
+            assert abs(float(out.pose_x[b]) - x) < 0.02
+            assert abs(float(out.pose_y[b]) - y) < 0.02
+            assert abs(float(out.pose_yaw[b]) - yaw) < 0.01
+
+
+def test_yuyv_input_gives_the_grey_step(scene, slice_outputs):
+    _, rig_t, frames, gyro = scene
+    _, grey_out, _ = slice_outputs
+    chroma = np.random.default_rng(9).integers(0, 256, frames.shape,
+                                               dtype=np.uint8)
+    yuyv = np.stack([frames, chroma], axis=-1).reshape(*frames.shape[:2], -1)
+    step = make_vision_pipeline(*rig_t, input_format="YUYV", device="cpu")
+    out = step(torch.from_numpy(yuyv), torch.from_numpy(gyro))
+    for name in out._fields:
+        if name != "detections":
+            assert torch.equal(getattr(out, name), getattr(grey_out, name)), name
+    for name in out.detections._fields:
+        assert torch.equal(getattr(out.detections, name),
+                           getattr(grey_out.detections, name)), name
+
+
+def test_pipeline_strips_detector_keys_of_other_layers(scene, caplog):
+    _, rig_t, _, _ = scene
+    with caplog.at_level(logging.WARNING):
+        step = make_vision_pipeline(*rig_t, detector_kwargs={
+            "ccl_impl": "union_find", "capacity_fallback": True,
+            "quad_decimate": 1}, device="cpu")
+    assert step.detector.quad_decimate == 1
+    assert not step.detector.capacity_fallback
+    assert "capacity_fallback" in caplog.text
 
 
 def test_port_imports_no_jax():
