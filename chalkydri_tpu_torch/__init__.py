@@ -8,7 +8,9 @@ The port of ``chalkydri_tpu`` (JAX/Pallas on TPU), module for module:
 - ``solver``: batched SQPnP with gyro fusion,
 - ``ops``: small linear algebra and the hand-written CUDA kernels
   (``csrc/``) that replace the JAX package's Pallas kernels,
-- ``pipeline``: the fused per-rig step ``frames, gyro -> VisionOutput``.
+- ``pipeline``: the fused per-rig step ``frames, gyro -> VisionOutput``,
+- ``parallel``: that step over a grid of devices, cameras data-parallel
+  and frame rows in bands.
 
 Importing this package imports ``torch`` only: no JAX, no CUDA compiler.
 The kernels build on first use (``ops/build.py``).

@@ -1,8 +1,9 @@
-// Device code shared by the CCL kernels B1 (ccl_extract.cu) and B3-B5
-// (threshold_ccl.cu): the adaptive tile threshold, the round-invariant
-// connectivity bits and the capped label-propagation rounds. Every page
-// lives in device memory; the stages run as launches on the caller's
-// stream, with no host synchronisation.
+// Device code shared by the CCL kernels B1 (ccl_extract.cu), B3-B5
+// (threshold_ccl.cu) and B7 (extract_blocked.cu): the adaptive tile
+// threshold, the round-invariant connectivity bits, the capped
+// label-propagation rounds and the boundary-candidate extraction of one
+// pixel. Every page lives in device memory; the stages run as launches on
+// the caller's stream, with no host synchronisation.
 //
 // Semantics (bit-identical to chalkydri_tpu's jnp and Pallas versions):
 //   threshold  4x4-tile min/max, dilated over the 3x3 tile neighborhood
@@ -13,7 +14,11 @@
 //              exactly `iters` rounds of neighbor-min (4-connectivity for
 //              every value, diagonals between white pixels only), row-run
 //              min, column-run min and remask. The Pallas kernels stop
-//              early at a fixed point, where more rounds change nothing.
+//              early at a fixed point, where more rounds change nothing;
+//   extraction an edge is a black/white pair of right or down neighbors
+//              whose pixels both have at least kMinSame same-valued
+//              8-neighbors (the speckle gate); it emits its black label,
+//              its white label and x2 | y2 << 13 | dir << 26 | white << 28.
 
 #pragma once
 
@@ -186,6 +191,55 @@ __global__ void line_min_kernel(int32_t* __restrict__ labels,
     int32_t v = runmin[ids[j]];
     if (remask && !(bits[base + j * stride] & (1u << kValidBit))) v = kInvalid;
     labels[base + j * stride] = v;
+  }
+}
+
+constexpr int kMinSame = 2;  // speckle gate: same-valued 8-neighbors
+
+// Same-valued 8-neighbors of (y, x) on an [H, W] page; neighbors outside
+// the page read as 127.
+__device__ __forceinline__ int same_count(const uint8_t* f, int H, int W,
+                                          int y, int x) {
+  const int v = f[y * W + x];
+  int c = 0;
+  for (int dy = -1; dy <= 1; ++dy) {
+    for (int dx = -1; dx <= 1; ++dx) {
+      if (!dy && !dx) continue;
+      const int ny = y + dy, nx = x + dx;
+      const bool in = ny >= 0 && ny < H && nx >= 0 && nx < W;
+      c += (in ? f[ny * W + nx] : 127) == v;
+    }
+  }
+  return c;
+}
+
+// The two candidates (dir 0: right pair, dir 1: down pair) of the pixel at
+// row y, column x of one frame's [H, W] ternary page f and label page lab.
+// They land in slot (out_y, x) of the frame's dir-major [2, out_h, W]
+// pages black/white/payload, with row y_global in the payload. Rows of the
+// page outside the emitted ones are neighbor context only.
+__device__ __forceinline__ void emit_candidates(
+    const uint8_t* f, const int32_t* lab, int H, int W, int y, int x,
+    int out_y, int out_h, int y_global, int32_t* black, int32_t* white,
+    int32_t* payload) {
+  const int v = f[y * W + x];
+  const int32_t l = lab[y * W + x];
+  const bool solid = same_count(f, H, W, y, x) >= kMinSame;
+  const bool p_white = v == 255;
+  for (int di = 0; di < 2; ++di) {
+    const int dy = di, dx = 1 - di;
+    const int ny = y + dy, nx = x + dx;
+    const bool in = ny < H && nx < W;
+    const int nv = in ? f[ny * W + nx] : 127;
+    const int32_t nl = in ? lab[ny * W + nx] : 0;
+    const bool nsolid = in && same_count(f, H, W, ny, nx) >= kMinSame;
+    const bool edge = (v + nv == 255) && solid && nsolid;
+    const size_t o = ((size_t)di * out_h + out_y) * W + x;
+    black[o] = edge ? (p_white ? nl : l) : kInvalid;
+    white[o] = edge ? (p_white ? l : nl) : kInvalid;
+    payload[o] = ((2 * x + dx) & 0x1FFF) |
+                 (((2 * y_global + dy) & 0x1FFF) << 13) | (di << 26) |
+                 ((int)p_white << 28);
   }
 }
 

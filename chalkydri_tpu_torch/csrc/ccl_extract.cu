@@ -20,7 +20,8 @@
 //      (with the remask of skip pixels). The Pallas kernel stops early at
 //      a fixed point, where further rounds change nothing, so the labels
 //      agree. There is no host synchronisation anywhere;
-//   4. the extraction epilogue (speckle gate + right/down edge pairs).
+//   4. the extraction epilogue (speckle gate + right/down edge pairs,
+//      ccl::emit_candidates, shared with B7).
 //
 // What bounds it: the 24 B/px of candidate pages written, and about
 // 12 rounds x ~26 B/px of label/bit traffic, served mostly from L2. Fusing
@@ -34,25 +35,6 @@
 
 namespace {
 
-using ccl::kInvalid;
-constexpr int kMinSame = 2;  // speckle gate: same-valued 8-neighbors
-
-// Same-valued 8-neighbors of (y, x); out-of-frame neighbors read as 127.
-__device__ __forceinline__ int same_count(const uint8_t* f, int H, int W,
-                                          int y, int x) {
-  const int v = f[y * W + x];
-  int c = 0;
-  for (int dy = -1; dy <= 1; ++dy) {
-    for (int dx = -1; dx <= 1; ++dx) {
-      if (!dy && !dx) continue;
-      const int ny = y + dy, nx = x + dx;
-      const bool in = ny >= 0 && ny < H && nx >= 0 && nx < W;
-      c += (in ? f[ny * W + nx] : 127) == v;
-    }
-  }
-  return c;
-}
-
 __global__ void extract_kernel(const uint8_t* __restrict__ tern,
                                const int32_t* __restrict__ labels, int B,
                                int H, int W, int32_t* __restrict__ black,
@@ -61,26 +43,9 @@ __global__ void extract_kernel(const uint8_t* __restrict__ tern,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * H * W) return;
   const int x = i % W, y = (i / W) % H, b = i / (H * W);
-  const uint8_t* f = tern + (size_t)b * H * W;
-  const int32_t* lab = labels + (size_t)b * H * W;
-  const int v = f[y * W + x];
-  const int32_t l = lab[y * W + x];
-  const bool solid = same_count(f, H, W, y, x) >= kMinSame;
-  const bool p_white = v == 255;
-  for (int di = 0; di < 2; ++di) {  // dir 0: right pair, dir 1: down pair
-    const int dy = di, dx = 1 - di;
-    const int ny = y + dy, nx = x + dx;
-    const bool in = ny < H && nx < W;
-    const int nv = in ? f[ny * W + nx] : 127;
-    const int32_t nl = in ? lab[ny * W + nx] : 0;
-    const bool nsolid = in && same_count(f, H, W, ny, nx) >= kMinSame;
-    const bool edge = (v + nv == 255) && solid && nsolid;
-    const size_t o = ((size_t)b * 2 + di) * H * W + (size_t)y * W + x;
-    black[o] = edge ? (p_white ? nl : l) : kInvalid;
-    white[o] = edge ? (p_white ? l : nl) : kInvalid;
-    payload[o] = ((2 * x + dx) & 0x1FFF) | (((2 * y + dy) & 0x1FFF) << 13) |
-                 (di << 26) | ((int)p_white << 28);
-  }
+  const size_t in = (size_t)b * H * W, out = 2 * in;
+  ccl::emit_candidates(tern + in, labels + in, H, W, y, x, y, H, y,
+                       black + out, white + out, payload + out);
 }
 
 }  // namespace

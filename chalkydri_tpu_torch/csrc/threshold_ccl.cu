@@ -24,15 +24,9 @@
 //    The TPU splits a 2 M-px frame into row blocks only because its live
 //    set exceeds VMEM, then merges the seams until a certified fixed
 //    point. Here every page is device memory, so this computes the fixed
-//    point directly with a lock-free union-find (Playne and Hawick 2018):
-//      1. threshold with the shared tile kernels;
-//      2. parent[p] = p, the flat index within the frame;
-//      3. each non-skip pixel unions with its connected backward
-//         neighbors (left and up for every value, up-left and up-right
-//         between two whites), linking the larger root under the smaller
-//         with atomicMin, so every root is its component's minimum index;
-//      4. each pixel walks to its root r and writes (r / W) * wp + r % W
-//         (kInvalid on skip pixels).
+//    point directly: threshold with the shared tile kernels, then the
+//    lock-free union-find of union_find.cuh (shared with B6), whose root
+//    walk writes (r / W) * wp + r % W for root r (kInvalid on skip pixels).
 //    A fixed number of launches, no host synchronisation, exact for any
 //    topology. The TPU result is the same fixed point wherever its hybrid
 //    merge certifies convergence; it can differ only where the TPU stops
@@ -45,91 +39,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ccl_common.cuh"
-
-namespace {
-
-using ccl::kInvalid;
-
-// Root of p. During the merge other threads lower parent entries; reading
-// through L2 (__ldcg) sees their atomics, and a stale entry is still an
-// ancestor of p, so the walk stays correct either way.
-__device__ __forceinline__ int find_root(const int32_t* parent, int p) {
-  int q = __ldcg(parent + p);
-  while (q != p) {
-    p = q;
-    q = __ldcg(parent + p);
-  }
-  return p;
-}
-
-// Union of the sets of a and b: the larger root goes under the smaller.
-// When the atomicMin finds that b stopped being a root, the set b had
-// joined is united with a in turn, so no link is lost.
-__device__ void unite(int32_t* parent, int a, int b) {
-  while (true) {
-    a = find_root(parent, a);
-    b = find_root(parent, b);
-    if (a == b) return;
-    if (a > b) {
-      const int t = a;
-      a = b;
-      b = t;
-    }
-    const int old = atomicMin(parent + b, a);
-    if (old == b) return;
-    b = old;
-  }
-}
-
-__global__ void init_parent_kernel(int B, int H, int W,
-                                   int32_t* __restrict__ parent) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * H * W) return;
-  parent[i] = i % (H * W);
-}
-
-// Unions over the backward neighbors. An up-left link is implied when the
-// left pixel is white too (left and up-left are vertical neighbors), and an
-// up-right link when the up pixel is white, so those two are skipped.
-__global__ void merge_kernel(const uint8_t* __restrict__ tern, int B, int H,
-                             int W, int32_t* parent) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * H * W) return;
-  const int hw = H * W;
-  const int b = i / hw, p = i % hw;
-  const int x = p % W, y = p / W;
-  const uint8_t* f = tern + (size_t)b * hw;
-  int32_t* par = parent + (size_t)b * hw;
-  const int v = f[p];
-  if (v == 127) return;
-  const bool left = x > 0 && f[p - 1] == v;
-  const bool up = y > 0 && f[p - W] == v;
-  if (left) unite(par, p, p - 1);
-  if (up) unite(par, p, p - W);
-  if (v == 255 && y > 0) {
-    if (!left && x > 0 && f[p - W - 1] == 255) unite(par, p, p - W - 1);
-    if (!up && x < W - 1 && f[p - W + 1] == 255) unite(par, p, p - W + 1);
-  }
-}
-
-__global__ void root_label_kernel(const uint8_t* __restrict__ tern,
-                                  const int32_t* __restrict__ parent, int B,
-                                  int H, int W, int wp,
-                                  int32_t* __restrict__ labels) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * H * W) return;
-  const int hw = H * W;
-  const int b = i / hw, p = i % hw;
-  if (tern[i] == 127) {
-    labels[i] = kInvalid;
-    return;
-  }
-  const int r = find_root(parent + (size_t)b * hw, p);
-  labels[i] = (r / W) * wp + r % W;
-}
-
-}  // namespace
+#include "union_find.cuh"
 
 // B3's threshold stage. gray [B, H, W] u8 (H, W multiples of 4) -> tern
 // [B, H, W] u8 in {0, 127, 255}. Scratch: tile_min, tile_max [B, H/4, W/4]
@@ -167,13 +77,5 @@ extern "C" int chalkydri_threshold_ccl_exact(const uint8_t* gray, int B,
   const int rc =
       ccl::threshold(gray, B, H, W, min_diff, tile_min, tile_max, tern, s);
   if (rc) return rc;
-  const int grid = ccl::blocks_for(B * H * W);
-  init_parent_kernel<<<grid, ccl::kThreads, 0, s>>>(B, H, W, parent);
-  CCL_CHECK_LAUNCH();
-  merge_kernel<<<grid, ccl::kThreads, 0, s>>>(tern, B, H, W, parent);
-  CCL_CHECK_LAUNCH();
-  root_label_kernel<<<grid, ccl::kThreads, 0, s>>>(tern, parent, B, H, W, wp,
-                                                   labels);
-  CCL_CHECK_LAUNCH();
-  return 0;
+  return ccl::label_exact(tern, B, H, W, wp, parent, labels, s);
 }

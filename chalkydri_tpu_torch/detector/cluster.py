@@ -3,7 +3,8 @@ white blob) pair (port of ``chalkydri_tpu/detector/cluster.py``).
 
 - ``extract_boundary_points`` enumerates every right and down neighbor
   pair densely and packs position + direction into one int32 payload (the
-  plain twin of kernel B1's epilogue),
+  plain twin of kernel B1's epilogue and, with its halo arguments, of
+  kernel B7),
 - ``compact_candidates`` keeps only the highest-ranked 128-candidate
   blocks per direction, orientation-aligned (``extract_and_compact`` runs
   both on ternary + label images, as the full-resolution path does),
@@ -72,17 +73,29 @@ def unpack_payload(p: torch.Tensor):
     return p & 0x1FFF, (p >> 13) & 0x1FFF, (p >> 26) & 0x3, (p >> 28) & 0x1
 
 
-def extract_boundary_points(tern: torch.Tensor, labels: torch.Tensor):
+def extract_boundary_points(tern: torch.Tensor, labels: torch.Tensor,
+                            halo_top: int = 0, halo_bottom: int = 0,
+                            y_offset: int = 0):
     """Dense boundary candidates of [B, H, W] ternary + label images.
 
     Returns (black_lab, white_lab, payload), each [B, 2*H*W] int32 in
     direction-major order; non-edges carry ``black == white == INT_MAX``.
     An edge is a black/white neighbor pair whose pixels both have at least
     ``MIN_SAME_NEIGHBORS`` same-valued 8-neighbors (the speckle gate).
+
+    For a row band of a frame, ``tern``/``labels`` are the band's core
+    rows extended with ``halo_top`` rows of the band above and
+    ``halo_bottom`` rows of the band below (the gate reaches one row, and
+    a down-edge of the last core row needs the gate of the row below, two
+    rows down in all). Only core pixels emit candidates, and ``y_offset``,
+    the frame row of the first core row, goes into the payload, so the
+    core rows' slots equal a whole-frame run's.
     """
     b, h, w = tern.shape
     dev = tern.device
-    ys = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
+    rows = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    core = (rows >= halo_top) & (rows < h - halo_bottom)  # [h, 1]
+    ys_frame = (rows - halo_top + y_offset).expand(h, w)
     xs = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
     val = tern.to(torch.int32)
     labels = labels.to(torch.int32)
@@ -93,10 +106,11 @@ def extract_boundary_points(tern: torch.Tensor, labels: torch.Tensor):
         nv = neighbor(val, dy, dx, 127)
         nl = neighbor(labels, dy, dx, 0)
         nsolid = neighbor(solid, dy, dx, False)
-        is_edge = (val + nv == 255) & solid & nsolid
+        is_edge = (val + nv == 255) & solid & nsolid & core
         black = torch.where(is_edge, torch.where(p_white, nl, labels), _INT_MAX)
         white = torch.where(is_edge, torch.where(p_white, labels, nl), _INT_MAX)
-        payload = (((2 * xs + dx) & 0x1FFF) | (((2 * ys + dy) & 0x1FFF) << 13)
+        payload = (((2 * xs + dx) & 0x1FFF)
+                   | (((2 * ys_frame + dy) & 0x1FFF) << 13)
                    | (di << 26) | (p_white.to(torch.int32) << 28))
         blacks.append(black.reshape(b, -1))
         whites.append(white.reshape(b, -1))

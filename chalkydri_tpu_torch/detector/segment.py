@@ -1,6 +1,6 @@
 """Stage 2: connected-component labeling by label propagation, the plain
 twin of the CCL of kernels B1, B3 and B4, and with
-``label_components_exact`` of B5 (port of
+``label_components_exact`` of B5 and B6 (port of
 ``chalkydri_tpu/detector/segment.py``).
 
 Every non-skip pixel starts with its flat index ``y * W + x`` as label
@@ -131,27 +131,31 @@ def padded_width(w: int) -> int:
     return -(-w // 128) * 128
 
 
-def label_components_exact(tern: torch.Tensor) -> torch.Tensor:
-    """Labels at the global fixed point, the plain twin of kernel B5
-    (``chalkydri_tpu/ops/pallas/ccl_kernel.py::threshold_ccl_blocked``'s
-    labeling). Initial labels are flat indices in the lane-padded frame,
-    ``y * padded_width(W) + x``, and rounds repeat until one changes
-    nothing, so every component carries its raster-first pixel's padded
-    index. One host check per round: this version never runs on the
-    card's path.
+def label_components_exact(tern: torch.Tensor,
+                           labels0: torch.Tensor | None = None) -> torch.Tensor:
+    """Labels at the global fixed point, the plain twin of kernels B5 and
+    B6 (``chalkydri_tpu/ops/pallas/ccl_kernel.py::threshold_ccl_blocked``'s
+    labeling, ``label_components_blocked_pallas`` and
+    ``propagate_components_blocked``). Rounds repeat until one changes
+    nothing, so every pixel ends with the minimum starting label of its
+    component. The starting labels are ``labels0`` or, by default, flat
+    indices in the lane-padded frame, ``y * padded_width(W) + x``: every
+    component then carries its raster-first pixel's padded index. One
+    host check per round: this version never runs on the card's path.
 
-    tern: [B, H, W] uint8 in {0, 127, 255}. Returns [B, H, W] int32,
-    ``INVALID`` on skip pixels.
+    tern: [B, H, W] uint8 in {0, 127, 255}; labels0: optional [B, H, W]
+    integer labels. Returns [B, H, W] int32, ``INVALID`` on skip pixels.
     """
     val = tern.to(torch.int32)
     valid = tern != 127
     masks = _connectivity_masks(val, valid)
-    _, h, w = tern.shape
-    dev = tern.device
-    flat = (torch.arange(h, dtype=torch.int64, device=dev)[:, None]
-            * padded_width(w)
-            + torch.arange(w, dtype=torch.int64, device=dev)[None, :])
-    labels = torch.where(valid, flat, INVALID)
+    if labels0 is None:
+        _, h, w = tern.shape
+        dev = tern.device
+        labels0 = (torch.arange(h, dtype=torch.int64, device=dev)[:, None]
+                   * padded_width(w)
+                   + torch.arange(w, dtype=torch.int64, device=dev)[None, :])
+    labels = torch.where(valid, labels0.to(torch.int64), INVALID)
     while True:
         nxt = _round(labels, val, valid, masks)
         if torch.equal(nxt, labels):

@@ -4,7 +4,7 @@ The sources compile with ``nvcc`` for Hopper (``sm_90a``) into ONE shared
 library with a plain C interface, loaded with ``ctypes``. The build runs
 on first use into ``chalkydri_tpu_torch/_build/`` (ignored by git) and is
 reused while the sources, the shared header and the flags hash the same.
-Nothing here runs at import time, so the package imports on machines
+Nothing here builds at import time, so the package imports on machines
 without a CUDA toolkit.
 """
 
@@ -17,11 +17,14 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("ccl_extract.cu", "segment_stats.cu", "threshold_ccl.cu")
-HEADERS = ("ccl_common.cuh",)
+SOURCES = ("ccl_extract.cu", "segment_stats.cu", "threshold_ccl.cu",
+           "propagate.cu", "extract_blocked.cu")
+HEADERS = ("ccl_common.cuh", "union_find.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -41,6 +44,13 @@ _SIGNATURES = {
     # gray, B, H, W, wp, min_diff, tile_min, tile_max, tern, parent,
     # labels, stream
     "chalkydri_threshold_ccl_exact": [_P, _I, _I, _I, _I, _I] + [_P] * 6,
+    # tern, B, H, W, wp, parent, labels, stream
+    "chalkydri_label_components_exact": [_P, _I, _I, _I, _I] + [_P] * 3,
+    # tern, labels, B, H, W, parent, rootval, out, stream
+    "chalkydri_propagate_components": [_P, _P, _I, _I, _I] + [_P] * 4,
+    # tern, labels, B, Hext, W, halo_top, halo_bottom, y_offset, black,
+    # white, payload, stream
+    "chalkydri_extract_band": [_P, _P, _I, _I, _I, _I, _I, _I] + [_P] * 4,
 }
 
 
@@ -107,6 +117,20 @@ def kernel_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def empty(shape, dtype, like: torch.Tensor) -> torch.Tensor:
+    """Uninitialised output or scratch tensor on ``like``'s device."""
+    return torch.empty(shape, dtype=dtype, device=like.device)
+
+
+def launch(entry: str, like: torch.Tensor, *args) -> None:
+    """Call the library's C entry point ``entry`` with ``args`` and the
+    current stream of ``like``'s card; raise on a launch error."""
+    with torch.cuda.device(like.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(kernel_library(), entry)(*args, stream)
+    check(rc, entry)
 
 
 def check(rc: int, name: str) -> None:

@@ -36,19 +36,6 @@ from chalkydri_tpu_torch.ops import build
 from chalkydri_tpu_torch.ops.ccl_extract import check_frames
 
 
-def _empty(shape, dtype, like: torch.Tensor) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device=like.device)
-
-
-def _launch(entry: str, like: torch.Tensor, *args) -> None:
-    """Call the library's C entry point ``entry`` with ``args`` and the
-    current stream of ``like``'s card; raise on a launch error."""
-    with torch.cuda.device(like.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(build.kernel_library(), entry)(*args, stream)
-    build.check(rc, entry)
-
-
 def threshold_ccl_plain(gray: torch.Tensor, iters: int = 12,
                         min_diff: int = MIN_WHITE_BLACK_DIFF):
     """Plain PyTorch version of B3: threshold -> ``iters`` CCL rounds."""
@@ -67,11 +54,12 @@ def threshold_ccl(gray: torch.Tensor, iters: int = 12,
     if iters < 0:
         raise ValueError("threshold_ccl: iters < 0")
     b, h, w = gray.shape
-    tile_min = _empty((b, h // 4, w // 4), torch.uint8, gray)
-    tile_max = _empty((b, h // 4, w // 4), torch.uint8, gray)
-    tern = _empty((b, h, w), torch.uint8, gray)
-    _launch("chalkydri_threshold", gray, gray.data_ptr(), b, h, w, min_diff,
-            tile_min.data_ptr(), tile_max.data_ptr(), tern.data_ptr())
+    tile_min = build.empty((b, h // 4, w // 4), torch.uint8, gray)
+    tile_max = build.empty((b, h // 4, w // 4), torch.uint8, gray)
+    tern = build.empty((b, h, w), torch.uint8, gray)
+    build.launch("chalkydri_threshold", gray, gray.data_ptr(), b, h, w,
+                 min_diff, tile_min.data_ptr(), tile_max.data_ptr(),
+                 tern.data_ptr())
     threshold_ccl.launches += 1
     return tern, label_components_ccl(tern, iters)
 
@@ -89,11 +77,12 @@ def label_components_ccl(tern: torch.Tensor, iters: int = 12) -> torch.Tensor:
     if iters < 0:
         raise ValueError("label_components_ccl: iters < 0")
     b, h, w = tern.shape
-    bits = _empty((b, h, w), torch.int16, tern)
-    labels = _empty((b, h, w), torch.int32, tern)
-    scratch = _empty((b, h, w), torch.int32, tern)
-    _launch("chalkydri_label_components", tern, tern.data_ptr(), b, h, w,
-            iters, bits.data_ptr(), labels.data_ptr(), scratch.data_ptr())
+    bits = build.empty((b, h, w), torch.int16, tern)
+    labels = build.empty((b, h, w), torch.int32, tern)
+    scratch = build.empty((b, h, w), torch.int32, tern)
+    build.launch("chalkydri_label_components", tern, tern.data_ptr(), b, h,
+                 w, iters, bits.data_ptr(), labels.data_ptr(),
+                 scratch.data_ptr())
     label_components_ccl.launches += 1
     return labels
 
@@ -119,14 +108,14 @@ def threshold_ccl_exact(gray: torch.Tensor,
     check_frames(gray, "threshold_ccl_exact")
     b, h, w = gray.shape
     wp = padded_width(w)
-    tile_min = _empty((b, h // 4, w // 4), torch.uint8, gray)
-    tile_max = _empty((b, h // 4, w // 4), torch.uint8, gray)
-    tern = _empty((b, h, w), torch.uint8, gray)
-    parent = _empty((b, h, w), torch.int32, gray)
-    labels = _empty((b, h, w), torch.int32, gray)
-    _launch("chalkydri_threshold_ccl_exact", gray, gray.data_ptr(), b, h, w,
-            wp, min_diff, tile_min.data_ptr(), tile_max.data_ptr(),
-            tern.data_ptr(), parent.data_ptr(), labels.data_ptr())
+    tile_min = build.empty((b, h // 4, w // 4), torch.uint8, gray)
+    tile_max = build.empty((b, h // 4, w // 4), torch.uint8, gray)
+    tern = build.empty((b, h, w), torch.uint8, gray)
+    parent = build.empty((b, h, w), torch.int32, gray)
+    labels = build.empty((b, h, w), torch.int32, gray)
+    build.launch("chalkydri_threshold_ccl_exact", gray, gray.data_ptr(), b,
+                 h, w, wp, min_diff, tile_min.data_ptr(), tile_max.data_ptr(),
+                 tern.data_ptr(), parent.data_ptr(), labels.data_ptr())
     threshold_ccl_exact.launches += 1
     return tern, labels
 

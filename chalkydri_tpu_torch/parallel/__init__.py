@@ -1,0 +1,13 @@
+"""A rig over several devices (port of ``chalkydri_tpu/parallel``): cameras
+data-parallel over the ``data`` axis of a device grid, and the rows of each
+frame banded over its ``space`` axis through the whole detect -> pose step.
+
+One process drives every device of the grid (``mesh``); the exchanges
+between bands are plain functions over the list of band tensors
+(``collectives``).
+"""
+
+from chalkydri_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401
+from chalkydri_tpu_torch.parallel.pipeline import (  # noqa: F401
+    make_sharded_vision_pipeline,
+)

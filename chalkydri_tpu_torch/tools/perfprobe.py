@@ -3,13 +3,16 @@
     python -m chalkydri_tpu_torch.tools.perfprobe [--runs N]
 
 For each path of ``chip_smoke.py`` (``quad_decimate=2`` on the bench scene,
-``quad_decimate=1`` on the bench and the deployed scene, ``tools/scenes``)
-it prints, one line each:
+``quad_decimate=1`` on the bench and the deployed scene, and the row-banded
+step over four bands on the spatial scene at both, ``tools/scenes``) it
+prints, one line each:
 
 - every stage of the step alone, between two ``torch.cuda.synchronize()``:
   host ms, median of N runs after a warm-up (decimation, the CCL kernel of
   the path, extraction and compaction, clustering, the post-cluster tail,
-  unprojection + solve, the whole step);
+  unprojection + solve, the whole step; for the row-banded step its front
+  end: placement, decimation + halo threshold, band CCL, band extraction,
+  compaction over bands, and the whole step);
 - a ``torch.profiler`` window over 3 steps: wall ms, the device kernel
   time, the device's busy share and the kernel launches per step.
 
@@ -95,6 +98,43 @@ def stage_times(step, frames, gyro, runs: int) -> dict[str, float]:
     return out
 
 
+def band_stage_times(step, place, frames, gyro, qd: int, edge_cap: int,
+                     runs: int) -> dict[str, float]:
+    """Host ms of each front-end stage of the row-banded step alone."""
+    from chalkydri_tpu_torch.detector.pipeline import decimate2
+    from chalkydri_tpu_torch.detector.threshold import MIN_WHITE_BLACK_DIFF
+    from chalkydri_tpu_torch.parallel import pipeline as par
+    from chalkydri_tpu_torch.parallel.sharded_stages import (
+        _exchange_halo,
+        _threshold_block,
+        label_components_block_kernel,
+    )
+
+    out = {"placement (frames into bands)": _host_ms(
+        lambda: place(frames, gyro), runs)}
+    bands = place(frames, gyro)[0][0]
+
+    def threshold():
+        small = [decimate2(b) if qd == 2 else b for b in bands]
+        return [_threshold_block(ext, MIN_WHITE_BLACK_DIFF)
+                for ext in _exchange_halo(small)]
+
+    out["decimate + halo threshold"] = _host_ms(threshold, runs)
+    terns = threshold()
+    out["band CCL (B6 + seam exchanges)"] = _host_ms(
+        lambda: label_components_block_kernel(terns), runs)
+    labels = label_components_block_kernel(terns)
+    out["band extraction (B7 + halo rows)"] = _host_ms(
+        lambda: par._band_candidates(terns, labels), runs)
+    pages = par._band_candidates(terns, labels)
+    hl, w = terns[0].shape[1:]
+    out["compaction over bands"] = _host_ms(
+        lambda: par._compact_over_bands(pages, hl, w, edge_cap,
+                                        terns[0].device), runs)
+    out["whole step"] = _host_ms(lambda: step(*place(frames, gyro)), runs)
+    return out
+
+
 def device_share(step, frames, gyro, steps: int = 3) -> dict[str, float]:
     """Wall ms, device kernel ms and launches per step under the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -128,6 +168,11 @@ def main() -> None:
         raise SystemExit("perfprobe: CUDA is not available")
     import subprocess
 
+    from chalkydri_tpu_torch.detector.cluster import MAX_EDGE_POINTS
+    from chalkydri_tpu_torch.parallel.mesh import make_mesh
+    from chalkydri_tpu_torch.parallel.pipeline import (
+        make_sharded_vision_pipeline,
+    )
     from chalkydri_tpu_torch.pipeline import make_vision_pipeline
     from chalkydri_tpu_torch.tools.scenes import load_scene
 
@@ -139,14 +184,25 @@ def main() -> None:
     dev = torch.device("cuda")
     report = {"card": card}
     for path, scene, qd in (("qd2 bench", "bench", 2), ("qd1 bench", "bench", 1),
-                            ("qd1 deployed", "deployed", 1)):
+                            ("qd1 deployed", "deployed", 1),
+                            ("spatial qd2", "spatial", 2),
+                            ("spatial qd1", "spatial", 1)):
         layout, params, rc, frames, poses = load_scene(scene, dev)
-        step = make_vision_pipeline(layout, params, rc, device=dev,
-                                    detector_kwargs={"quad_decimate": qd})
         gyro = torch.tensor([p[2] for p in poses], dtype=torch.float32,
                             device=dev)
-        stages = stage_times(step, frames, gyro, args.runs)
-        share = device_share(step, frames, gyro)
+        if scene == "spatial":  # four row bands, all on this card
+            banded, place = make_sharded_vision_pipeline(
+                layout, params, rc, make_mesh([dev] * 4, space=4),
+                spatial=True, detector_kwargs={"quad_decimate": qd})
+            stages = band_stage_times(banded, place, frames, gyro, qd,
+                                      MAX_EDGE_POINTS, args.runs)
+            share = device_share(lambda f, g: banded(*place(f, g)), frames,
+                                 gyro)
+        else:
+            step = make_vision_pipeline(layout, params, rc, device=dev,
+                                        detector_kwargs={"quad_decimate": qd})
+            stages = stage_times(step, frames, gyro, args.runs)
+            share = device_share(step, frames, gyro)
         shape = "x".join(str(d) for d in frames.shape)
         for name, ms in stages.items():
             print(f"{path} {shape} {name}: {ms:.3f} ms", flush=True)

@@ -1,12 +1,18 @@
-"""Rendered scenes for the card runs (``chip_smoke.py``, ``perfprobe``):
-tag36h11 tags 28-31 of the 2026 field layout (``examples/field_2026.json``,
-blue wall at x = 16.518 m, facing -x) seen by a pinhole camera mounted
-1 m up with no tilt, one known robot pose per camera, warped onto a
-uniform gray frame with numpy (float64 geometry, bilinear sampling).
+"""Rendered scenes for the card runs (``chip_smoke.py``, ``perfprobe``,
+``dryrun``): tag36h11 tags 28-31 of the 2026 field layout
+(``examples/field_2026.json``, blue wall at x = 16.518 m, facing -x) seen
+by a pinhole camera with no tilt, one known robot pose per camera, warped
+onto a uniform gray frame with numpy (float64 geometry, bilinear sampling).
 
-- ``"bench"``: 4 cameras of 1280x800, fx = fy = 1100, centered;
+- ``"bench"``: 4 cameras of 1280x800, fx = fy = 1100, centered, 1 m up;
 - ``"deployed"``: the deployed rig, 2 cameras of 1600x1304, fx = fy =
-  1100, cx = 800, cy = 652.
+  1100, cx = 800, cy = 652, 1 m up;
+- ``"spatial"``: the deployed rig with its frames padded to 1312 rows (a
+  multiple of 4 bands x 8) and the cameras 1.2 m up, so that all four tags
+  (1.22 m up) straddle row 656, the middle seam of four row bands.
+
+``tiny_rig`` and ``render_tiny`` are the dry run's scene: a three-tag
+layout of its own with two tags 0.6 m before the camera.
 """
 
 from __future__ import annotations
@@ -28,12 +34,28 @@ _LENS = {"fx": 1100.0, "fy": 1100.0, "k1": 0.0, "k2": 0.0, "p1": 0.0,
 # One robot pose (x m, y m, yaw rad) per camera, so a slot mix-up shows.
 _POSES = ((13.0, 4.0215, 0.0), (12.9, 3.99, 0.015), (13.1, 4.06, -0.015),
           (12.8, 3.95, 0.04))
+# name -> (lens and frame size, robot poses, camera mount)
 SCENES = {
     "bench": (dict(_LENS, cx=640.0, cy=400.0, width=1280, height=800),
-              _POSES),
+              _POSES, MOUNT),
     "deployed": (dict(_LENS, cx=800.0, cy=652.0, width=1600, height=1304),
-                 _POSES[:2]),
+                 _POSES[:2], MOUNT),
+    "spatial": (dict(_LENS, cx=800.0, cy=656.0, width=1600, height=1312),
+                _POSES[:2], dict(MOUNT, z=1.2)),
 }
+
+# The dry run's rig: one camera looking down field +x at two tags on a
+# wall 0.6 m ahead, centered on the lens axis, so they render large enough
+# to decode in a 128x256 frame; and the same scene through a 1280x800 lens.
+TINY_CALIB = {"fx": 220.0, "fy": 220.0, "cx": 128.0, "cy": 64.0, "k1": 0.0,
+              "k2": 0.0, "p1": 0.0, "p2": 0.0, "k3": 0.0, "width": 256,
+              "height": 128}
+PROD_CALIB = {"fx": 900.0, "fy": 900.0, "cx": 640.0, "cy": 400.0, "k1": 0.0,
+              "k2": 0.0, "p1": 0.0, "p2": 0.0, "k3": 0.0, "width": 1280,
+              "height": 800}
+TINY_MOUNT = dict(MOUNT, z=1.1)  # camera height == tag height
+TINY_ROBOT = (10.7, 4.4, 0.0)  # 0.6 m from the tag wall at x = 11.3
+TINY_TAGS = (1, 2)
 
 
 def homography(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
@@ -78,9 +100,9 @@ def place_tag(canvas: np.ndarray, tag: np.ndarray, cell_px: int,
     canvas[rows, cols] = np.clip(np.rint(val), 0, 255).astype(np.uint8)
 
 
-def render_scene(layout, rig_rc, robot_x, robot_y, robot_yaw,
-                 calib: dict) -> np.ndarray:
-    """The camera's view of TAGS from a robot pose, on a
+def render_scene(layout, rig_rc, robot_x, robot_y, robot_yaw, calib: dict,
+                 tags=TAGS, cell_px: int = 16) -> np.ndarray:
+    """The camera's view of ``tags`` from a robot pose, on a
     ``calib["height"] x calib["width"]`` uint8 frame."""
     from chalkydri_tpu_torch.detector.families import load_family, render_tag
     from chalkydri_tpu_torch.geometry.tags import corners_world
@@ -93,8 +115,7 @@ def render_scene(layout, rig_rc, robot_x, robot_y, robot_yaw,
     rc_rot = rig_rc.rotation[0].double().cpu().numpy()
     rc_t = rig_rc.translation[0].double().cpu().numpy()
     canvas = np.full((h, w), 150, np.uint8)
-    cell_px = 16
-    for tid in TAGS:
+    for tid in tags:
         pose = layout.tag_pose(torch.tensor(tid))
         pose = type(pose)(pose.rotation.double().cpu(),
                           pose.translation.double().cpu())
@@ -104,8 +125,8 @@ def render_scene(layout, rig_rc, robot_x, robot_y, robot_yaw,
             raise AssertionError(f"tag {tid} is not in front of the camera")
         pix = np.stack([calib["fx"] * pc[0] / pc[2] + calib["cx"],
                         calib["fy"] * pc[1] / pc[2] + calib["cy"]], axis=1)
-        if not ((pix > 16).all() and (pix[:, 0] < w - 16).all()
-                and (pix[:, 1] < h - 16).all()):
+        if not ((pix > 0).all() and (pix[:, 0] < w - 1).all()
+                and (pix[:, 1] < h - 1).all()):
             raise AssertionError(f"tag {tid} is not inside the frame: {pix}")
         place_tag(canvas, render_tag(fam, tid, cell_px=cell_px), cell_px, pix)
     return canvas
@@ -118,11 +139,41 @@ def load_scene(name: str, device):
     from chalkydri_tpu_torch.geometry.field_layout import load_field_layout
     from chalkydri_tpu_torch.pipeline import build_rig_from_config
 
-    calib, poses = SCENES[name]
+    calib, poses, mount = SCENES[name]
     layout = load_field_layout(FIELD_JSON, dtype=torch.float32)
     cams = [{"calib": json.dumps({"OpenCVModel5": calib}),
-             "robot_to_cam": json.dumps(MOUNT)}] * len(poses)
+             "robot_to_cam": json.dumps(mount)}] * len(poses)
     params, rc = build_rig_from_config(cams, layout, device=device)
     frames = torch.from_numpy(np.stack(
         [render_scene(layout, rc, *pose, calib) for pose in poses]))
     return layout, params, rc, frames.to(device), poses
+
+
+def tiny_rig(calib: dict | None = None):
+    """``(layout, cams)``: a three-tag field layout (tags 1 and 2 side by
+    side on a wall at x = 11.3 m facing -x, tag 3 elsewhere) and the config
+    entry of one camera with lens ``calib`` (default ``TINY_CALIB``), for
+    ``build_rig_from_config(cams * n, layout)``."""
+    from chalkydri_tpu_torch.geometry.field_layout import parse_field_layout
+
+    tags = [{"ID": tid,
+             "pose": {"translation": {"x": x, "y": y, "z": 1.1},
+                      "rotation": {"quaternion": {"W": 0.0, "X": 0.0,
+                                                  "Y": 0.0, "Z": 1.0}}}}
+            for tid, (x, y) in enumerate(
+                [(11.3, 4.4), (11.3, 4.15), (11.9, 6.6)], start=1)]
+    layout = parse_field_layout(
+        {"tags": tags, "field": {"length": 16.518, "width": 8.043}},
+        dtype=torch.float32)
+    cams = [{"calib": json.dumps({"OpenCVModel5": calib or TINY_CALIB}),
+             "robot_to_cam": json.dumps(TINY_MOUNT)}]
+    return layout, cams
+
+
+def render_tiny(layout, rig_rc, n_frames: int, calib: dict | None = None,
+                cell_px: int = 16) -> np.ndarray:
+    """[n_frames, H, W] uint8: the view of ``TINY_TAGS`` from
+    ``TINY_ROBOT`` through ``calib`` (default ``TINY_CALIB``), repeated."""
+    frame = render_scene(layout, rig_rc, *TINY_ROBOT, calib or TINY_CALIB,
+                         tags=TINY_TAGS, cell_px=cell_px)
+    return np.stack([frame] * n_frames)

@@ -8,25 +8,34 @@
 3. renders the scenes of ``chalkydri_tpu_torch/tools/scenes.py``: the
    bench scene, four 1280x800 frames of tag36h11 tags 28-31 of the 2026
    field layout through the bench camera (fx = fy = 1100, camera 1 m up,
-   no tilt), one known robot pose per frame, as a batch of 4 cameras; and
-   the deployed scene, two 1600x1304 frames of the same tags through the
+   no tilt), one known robot pose per frame, as a batch of 4 cameras; the
+   deployed scene, two 1600x1304 frames of the same tags through the
    deployed geometry (fx = fy = 1100, cx = 800, cy = 652) from two robot
-   poses;
+   poses; and the spatial scene, the deployed one padded to 1312 rows
+   with the cameras 1.2 m up, so that every tag straddles the middle seam
+   of four row bands;
 4. runs each kernel on the card at its path's shapes against its plain
    PyTorch twin on the same CUDA tensors (bit-identical required), times
    both with CUDA events, and checks both again on edge cases (a scene
    where the CCL round cap binds, noise, adversarial run layouts, row
    counts under one tile and off the 128-row chunk): B1 and B2 at the
    ``quad_decimate=2`` shapes, B3 and B4 at [4, 800, 1280], B5 at
-   [2, 1304, 1600];
-5. drives three paths through the entry points (``build_rig_from_config``
-   -> ``make_vision_pipeline``), each with the launch counts set to 0 just
-   before it and read just after: ``quad_decimate=2`` at 4 x 1280x800
-   (B1, B2), ``quad_decimate=1`` at 4 x 1280x800 (B3, B4, B2) and
-   ``quad_decimate=1`` at 2 x 1600x1304 (B5, B2). Each checks the ids and
-   each frame's pose against its own truth and that every kernel of the
-   path launched, compares the step with the same step run on the plain
-   twins only, and times both;
+   [2, 1304, 1600], B6 (both entries) and B7 (whole frame and band entry)
+   at the row bands of the spatial scene, 2 x 1312x1600 in four bands of
+   328 rows (and of 164x800 after decimation), plus a snake that crosses
+   every seam of four bands;
+5. drives four paths through the entry points (``build_rig_from_config``
+   -> ``make_vision_pipeline`` / ``make_sharded_vision_pipeline``), each
+   with the launch counts set to 0 just before it and read just after:
+   ``quad_decimate=2`` at 4 x 1280x800 (B1, B2), ``quad_decimate=1`` at
+   4 x 1280x800 (B3, B4, B2), ``quad_decimate=1`` at 2 x 1600x1304 (B5,
+   B2), and the row-banded step (``spatial=True``) at 2 x 1600x1312 over a
+   grid of four bands on the one card, at ``quad_decimate=2`` and ``1``
+   (B6, B7, B2). Each checks the ids and each frame's pose against its own
+   truth and that every kernel of the path launched, compares the step
+   with the same step run on the plain twins only, and times both; the
+   row-banded step is also held against the single-card step on the same
+   frames;
 6. checks the options: the bench scene as YUYV gives the GREY step's ids
    and poses, and a flooded frame with a small ``max_edge_points`` drives
    ``capacity_fallback`` to its second program.
@@ -55,7 +64,9 @@ POSE_TOL_M = 0.02
 CORNER_TOL, POSE_TOL, YAW_TOL = 1e-3, 1e-3, 1e-3  # as the CPU parity tests
 TIMED_RUNS = 20  # CUDA-event runs per kernel and twin
 STEPS = 5  # checked steps per path
-TIMED_STEPS = {"qd2": 20, "qd1": 10}  # host-clock steps per side and turn
+# host-clock steps per side and turn
+TIMED_STEPS = {"qd2": 10, "qd1": 6, "spatial": 6}
+BANDS = 4  # row bands of the spatial path, all on the one card
 
 # The least time the card could take (H100 SXM datasheet figures):
 # bytes over the memory rate, operations over the
@@ -134,7 +145,16 @@ class plain_twins:
     def __enter__(self):
         import chalkydri_tpu_torch.detector.cluster as cluster
         import chalkydri_tpu_torch.detector.pipeline as det
+        import chalkydri_tpu_torch.parallel.pipeline as par
+        import chalkydri_tpu_torch.parallel.sharded_stages as stages
         from chalkydri_tpu_torch.ops.ccl_extract import threshold_ccl_extract_plain
+        from chalkydri_tpu_torch.ops.extract_blocked import (
+            extract_candidates_band_plain,
+        )
+        from chalkydri_tpu_torch.ops.propagate import (
+            label_components_blocked_plain,
+            propagate_components_blocked_plain,
+        )
         from chalkydri_tpu_torch.ops.segment_stats import segment_stats_plain
         from chalkydri_tpu_torch.ops.threshold_ccl import (
             threshold_ccl_exact_plain,
@@ -144,11 +164,20 @@ class plain_twins:
         self._saved = [(det, "threshold_ccl_extract", det.threshold_ccl_extract),
                        (det, "threshold_ccl", det.threshold_ccl),
                        (det, "threshold_ccl_exact", det.threshold_ccl_exact),
-                       (cluster, "segment_stats", cluster.segment_stats)]
+                       (cluster, "segment_stats", cluster.segment_stats),
+                       (stages, "label_components_blocked",
+                        stages.label_components_blocked),
+                       (stages, "propagate_components_blocked",
+                        stages.propagate_components_blocked),
+                       (par, "extract_candidates_band",
+                        par.extract_candidates_band)]
         det.threshold_ccl_extract = threshold_ccl_extract_plain
         det.threshold_ccl = threshold_ccl_plain
         det.threshold_ccl_exact = threshold_ccl_exact_plain
         cluster.segment_stats = segment_stats_plain
+        stages.label_components_blocked = label_components_blocked_plain
+        stages.propagate_components_blocked = propagate_components_blocked_plain
+        par.extract_candidates_band = extract_candidates_band_plain
         return self
 
     def __exit__(self, *exc):
@@ -220,6 +249,139 @@ def edge_cases(dev, shape) -> None:
                       segment_stats_plain(km, pm))
 
 
+def band_phases(dev, card, frames_sp):
+    """B6 and B7 against their plain twins on the spatial scene's row bands
+    (full resolution and decimated), on a whole frame, and on a snake that
+    crosses every seam of four bands. Times them at the full-resolution
+    band shape. Returns {kernel: (err, ms, plain_ms, bytes, ops)}."""
+    import torch
+
+    from chalkydri_tpu_torch.detector.cluster import extract_boundary_points
+    from chalkydri_tpu_torch.detector.pipeline import decimate2
+    from chalkydri_tpu_torch.detector.segment import INVALID, padded_width
+    from chalkydri_tpu_torch.detector.threshold import adaptive_threshold
+    from chalkydri_tpu_torch.ops.extract_blocked import (
+        extract_candidates_band,
+        extract_candidates_band_plain,
+        extract_candidates_blocked,
+    )
+    from chalkydri_tpu_torch.ops.propagate import (
+        label_components_blocked,
+        label_components_blocked_plain,
+        propagate_components_blocked,
+        propagate_components_blocked_plain,
+    )
+    from chalkydri_tpu_torch.parallel.mesh import (
+        gather_frames,
+        make_mesh,
+        place_frames,
+    )
+    from chalkydri_tpu_torch.parallel.sharded_stages import (
+        _ici_seam_min,
+        _with_seam_rows,
+        label_components_block_kernel,
+    )
+
+    mesh = make_mesh([dev] * BANDS, space=BANDS)
+    out = {}
+    for qd, frames in ((1, frames_sp), (2, decimate2(frames_sp))):
+        tern = adaptive_threshold(frames)
+        bands = place_frames(mesh, tern, spatial=True)[0]
+        hl, w = bands[0].shape[1:]
+        stride = hl * padded_width(w)
+        # B6, first entry: every band from flat indices
+        local = [label_components_blocked(t) for t in bands]
+        for j, (t, lab) in enumerate(zip(bands, local)):
+            require_equal(f"B6 label qd{qd} band {j}", ("labels",), (lab,),
+                          (label_components_blocked_plain(t),))
+        # B6, second entry: globally offset labels after one seam exchange
+        labels = [torch.where(lab == INVALID, lab, lab + j * stride)
+                  for j, lab in enumerate(local)]
+        seams = _ici_seam_min(labels, bands)
+        merged = [_with_seam_rows(lab, top, bottom)
+                  for lab, (top, bottom) in zip(labels, seams)]
+        moved = sum(int((m != lab).sum()) for m, lab in zip(merged, labels))
+        if moved == 0:
+            raise AssertionError(f"qd{qd}: no tag crosses a band seam")
+        for j, (t, m) in enumerate(zip(bands, merged)):
+            require_equal(f"B6 propagate qd{qd} band {j}", ("labels",),
+                          (propagate_components_blocked(t, m),),
+                          (propagate_components_blocked_plain(t, m),))
+        # B7: the whole frame, and every band with its halo rows
+        whole_labels = gather_frames([label_components_block_kernel(bands)])
+        whole = extract_candidates_blocked(tern, whole_labels)
+        require_equal(f"B7 whole frame qd{qd}", ("black", "white", "payload"),
+                      whole, extract_boundary_points(tern, whole_labels))
+        b, h = tern.shape[:2]
+        t_pad = torch.nn.functional.pad(tern, (0, 0, 1, 2), value=127)
+        l_pad = torch.nn.functional.pad(whole_labels, (0, 0, 1, 2),
+                                        value=INVALID)
+        for j in range(BANDS):
+            t_ext = t_pad[:, j * hl:(j + 1) * hl + 3].contiguous()
+            l_ext = l_pad[:, j * hl:(j + 1) * hl + 3].contiguous()
+            got = extract_candidates_band(t_ext, l_ext, 1, 2, j * hl)
+            require_equal(f"B7 band {j} qd{qd}", ("black", "white", "payload"),
+                          got, extract_candidates_band_plain(t_ext, l_ext, 1, 2,
+                                                             j * hl))
+            for g, wh in zip(got, whole):  # the whole-frame run's slots
+                if not torch.equal(g.reshape(b, 2, hl, w),
+                                   wh.reshape(b, 2, h, w)[:, :, j * hl:(j + 1) * hl]):
+                    raise AssertionError(f"B7 band {j} qd{qd}: differs from "
+                                         f"the whole-frame extraction")
+        print(f"B6/B7 qd{qd}: {BANDS} bands of {tuple(bands[0].shape)} "
+              f"bit-identical to their twins; the seam exchange lowered "
+              f"{moved} labels; band extraction equals the whole frame's",
+              flush=True)
+        if qd != 1:
+            continue
+        # time at the band that holds the tags' upper halves
+        j = BANDS // 2 - 1
+        t, m = bands[j], merged[j]
+        t_ext = t_pad[:, j * hl:(j + 1) * hl + 3].contiguous()
+        l_ext = l_pad[:, j * hl:(j + 1) * hl + 3].contiguous()
+        px, px_ext = t.numel(), t_ext.numel()
+        pairs = {
+            "label_components_blocked": (
+                lambda: label_components_blocked(t),
+                lambda: label_components_blocked_plain(t),
+                px * (1 + 4), px * UNION_FIND_OPS),
+            "propagate_components_blocked": (
+                lambda: propagate_components_blocked(t, m),
+                lambda: propagate_components_blocked_plain(t, m),
+                px * (1 + 4 + 4), px * (UNION_FIND_OPS + 2)),
+            "extract_candidates_band": (
+                lambda: extract_candidates_band(t_ext, l_ext, 1, 2, j * hl),
+                lambda: extract_candidates_band_plain(t_ext, l_ext, 1, 2,
+                                                      j * hl),
+                px_ext * (1 + 4) + px * 24, px * EXTRACT_OPS),
+        }
+        for name, (kernel, plain, nbytes, ops) in pairs.items():
+            err = max_abs_err(_as_tuple(kernel()), _as_tuple(plain()))
+            ms, plain_ms = time_pair(f"{name}", t_ext.shape if "band" in name
+                                     else t.shape, card, kernel, plain)
+            out[name] = (err, ms, plain_ms, nbytes, ops)
+
+    # a snake through every seam of four 16-row bands
+    serp = torch.from_numpy(serpentine(stripes=6)).to(dev)[None]
+    serp_bands = place_frames(mesh, serp, spatial=True)[0]
+    got = gather_frames([label_components_block_kernel(
+        serp_bands, outer_rounds=100)])
+    with plain_twins():
+        want = gather_frames([label_components_block_kernel(
+            serp_bands, outer_rounds=100)])
+    require_equal("B6 serpentine over bands", ("labels",), (got,), (want,))
+    if len(torch.unique(got[serp == 255])) != 1:
+        raise AssertionError("B6 serpentine: the snake has more than 1 label")
+    print("B6 serpentine: the snake crosses every seam of 4 bands, labels "
+          "bit-identical to the twins' loop, the whole snake one label",
+          flush=True)
+    return out
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
 def check_path(label, outs, true_x, true_y) -> float:
     """All four ids in every frame of every step, finite outputs, each
     frame's pose within POSE_TOL_M of its truth; the largest error."""
@@ -275,11 +437,53 @@ def compare_outputs(label, ref, other) -> None:
         raise AssertionError(f"{label}: decision margins differ")
 
 
+def in_slot_order_of(label, ref, out):
+    """``out`` with each frame's detection slots moved to where ``ref``
+    holds the same tag id, after checking that the move is one between
+    tied slots only: slots are ranked by decision margin, and between
+    equal margins by the order of the clusters, which follows the hash of
+    their labels (flat indices on one card at ``quad_decimate=2``,
+    padded-flat ones in the row bands). A slot may move only onto a slot
+    whose margin is the same float, in ``ref`` and in ``out``; any other
+    difference of order raises. Returns (out reordered, slots moved)."""
+    import torch
+
+    d_ref, d_out = ref.detections, out.detections
+    big = torch.iinfo(torch.int32).max
+    order_ref = torch.argsort(torch.where(d_ref.valid, d_ref.ids, big),
+                              dim=1, stable=True)
+    order_out = torch.argsort(torch.where(d_out.valid, d_out.ids, big),
+                              dim=1, stable=True)
+    # perm[b, s]: the slot of ``out`` that goes to slot s
+    perm = torch.empty_like(order_ref).scatter_(1, order_ref, order_out)
+    for name, d in (("single-card", d_ref), ("row-banded", d_out)):
+        m = d.decision_margins
+        if not torch.equal(m.gather(1, perm)[d_ref.valid], m[d_ref.valid]):
+            raise AssertionError(
+                f"{label}: slot order differs between slots whose "
+                f"{name} decision margins do not tie: perm "
+                f"{perm.tolist()}, margins {m.tolist()}")
+    moved = int((perm != torch.arange(perm.shape[1], device=perm.device))
+                [d_ref.valid].sum())
+
+    def take(x):
+        idx = perm.reshape(*perm.shape, *([1] * (x.dim() - 2)))
+        return x.gather(1, idx.expand_as(x))
+
+    return out._replace(detections=d_out._replace(
+        ids=take(d_out.ids), corners=take(d_out.corners),
+        hammings=take(d_out.hammings),
+        decision_margins=take(d_out.decision_margins),
+        valid=take(d_out.valid))), moved
+
+
 def drive_path(label, step, frames, true_xy_yaw, counters, expect, card,
-               timed_steps):
+               timed_steps, against=None, ties_may_reorder=False):
     """The path through ``step``: launch counts from 0 over STEPS checked
     steps, every expected kernel launched (and no other), ids and poses,
-    the twin-only step compared, then timed in turns (twins, kernels,
+    the twin-only step compared (and the step ``against``, where given:
+    slot for slot, or with ``ties_may_reorder`` after moving slots of
+    equal decision margin only), then timed in turns (twins, kernels,
     kernels, twins). Returns the launch counts."""
     import torch
 
@@ -305,6 +509,20 @@ def drive_path(label, step, frames, true_xy_yaw, counters, expect, card,
     with plain_twins():
         plain_out = step(frames, gyros[0])
     compare_outputs(f"{label} vs plain twins", outs[0], plain_out)
+    if against is not None:
+        ref, got, how = against(frames, gyros[0]), outs[0], "slot for slot"
+        if ties_may_reorder:
+            got, moved = in_slot_order_of(label, ref, got)
+            how = (f"{moved} slots moved, each onto a slot of the same "
+                   f"decision margin: single-card ids "
+                   f"{ref.detections.ids[ref.detections.valid].tolist()} "
+                   f"margins "
+                   f"{ref.detections.decision_margins[ref.detections.valid].tolist()}"
+                   f", row-banded ids "
+                   f"{outs[0].detections.ids[outs[0].detections.valid].tolist()}")
+        compare_outputs(f"{label} vs single-card step", ref, got)
+        print(f"{label}: integer outputs equal to the single-card step's "
+              f"({how}), floats within {CORNER_TOL}", flush=True)
 
     def step_times(plain: bool) -> list[float]:
         times = []
@@ -376,6 +594,11 @@ def main() -> None:
         threshold_ccl_extract,
         threshold_ccl_extract_plain,
     )
+    from chalkydri_tpu_torch.ops.extract_blocked import extract_candidates_band
+    from chalkydri_tpu_torch.ops.propagate import (
+        label_components_blocked,
+        propagate_components_blocked,
+    )
     from chalkydri_tpu_torch.ops.segment_stats import (
         segment_stats,
         segment_stats_plain,
@@ -389,6 +612,13 @@ def main() -> None:
     )
     from chalkydri_tpu_torch.detector.segment import label_components
     from chalkydri_tpu_torch.detector.threshold import adaptive_threshold
+    from chalkydri_tpu_torch.parallel.mesh import make_mesh
+    from chalkydri_tpu_torch.parallel.pipeline import (
+        make_sharded_vision_pipeline,
+    )
+    from chalkydri_tpu_torch.parallel.sharded_stages import (
+        label_components_block_kernel,
+    )
     from chalkydri_tpu_torch.pipeline import make_vision_pipeline
     from chalkydri_tpu_torch.tools.scenes import TAGS, load_scene
 
@@ -399,8 +629,10 @@ def main() -> None:
 
     layout, params, rc, frames, poses = load_scene("bench", dev)
     _, dep_params, dep_rc, dep_frames, dep_poses = load_scene("deployed", dev)
+    _, sp_params, sp_rc, sp_frames, sp_poses = load_scene("spatial", dev)
     for label, f, p in (("scene", frames, poses),
-                        ("deployed scene", dep_frames, dep_poses)):
+                        ("deployed scene", dep_frames, dep_poses),
+                        ("spatial scene", sp_frames, sp_poses)):
         print(f"{label}: {f.shape[0]} x {f.shape[1]}x{f.shape[2]} u8, tags "
               f"{list(TAGS)}, robot poses (x, y, yaw) {list(p)}", flush=True)
 
@@ -483,12 +715,18 @@ def main() -> None:
     print("B5 serpentine: bit-identical, the whole snake one label",
           flush=True)
 
+    # B6 and B7 at the spatial path's band shapes.
+    band = band_phases(dev, card, sp_frames)
+
     # -- the paths through the entry points, kernels counted --------------
     counters = {"threshold_ccl_extract": threshold_ccl_extract,
                 "segment_stats": segment_stats,
                 "threshold_ccl": threshold_ccl,
                 "label_components_ccl": label_components_ccl,
-                "threshold_ccl_exact": threshold_ccl_exact}
+                "threshold_ccl_exact": threshold_ccl_exact,
+                "label_components_blocked": label_components_blocked,
+                "propagate_components_blocked": propagate_components_blocked,
+                "extract_candidates_band": extract_candidates_band}
     step = make_vision_pipeline(layout, params, rc, device=dev)
     qd2 = drive_path("qd2 main path", step, frames, poses, counters,
                      ("threshold_ccl_extract", "segment_stats"), card,
@@ -503,6 +741,29 @@ def main() -> None:
     dep = drive_path("qd1 deployed path", step_dep, dep_frames, dep_poses,
                      counters, ("threshold_ccl_exact", "segment_stats"), card,
                      TIMED_STEPS["qd1"])
+
+    # The row-banded step: four bands of the one card, kernel CCL.
+    mesh = make_mesh([dev] * BANDS, space=BANDS)
+    spatial = {}
+    for qd in (2, 1):
+        dk = {"quad_decimate": qd, "ccl_impl": "pallas"}
+        sp_step, sp_place = make_sharded_vision_pipeline(
+            layout, sp_params, sp_rc, mesh, spatial=True, detector_kwargs=dk)
+        single = make_vision_pipeline(layout, sp_params, sp_rc, device=dev,
+                                      detector_kwargs={"quad_decimate": qd})
+        spatial[qd] = drive_path(
+            f"spatial deployed qd{qd} path",
+            lambda f, g: sp_step(*sp_place(f, g)), sp_frames, sp_poses,
+            counters, ("label_components_blocked",
+                       "propagate_components_blocked",
+                       "extract_candidates_band", "segment_stats"), card,
+            TIMED_STEPS["spatial"], against=single,
+            ties_may_reorder=(qd == 2))
+        label_components_block_kernel.host_reads = 0
+        sp_step(*sp_place(sp_frames, torch.zeros(len(sp_poses), device=dev)))
+        print(f"spatial deployed qd{qd} path: "
+              f"{label_components_block_kernel.host_reads} host reads a step "
+              f"(the band CCL's exit test)", flush=True)
 
     # -- options -----------------------------------------------------------
     gyro0 = torch.tensor([p[2] for p in poses], dtype=torch.float32,
@@ -561,6 +822,14 @@ def main() -> None:
                      dep["threshold_ccl_exact"], b5_err, b5_ms, b5_plain_ms,
                      b5_px * (1 + 1 + 4),
                      b5_px * (THRESH_OPS + UNION_FIND_OPS)),
+        *(kernel_entry(name, source, replaces, spatial[1][name], *band[name])
+          for name, source, replaces in (
+              ("label_components_blocked", "propagate.cu",
+               "ccl_kernel.py:1244"),
+              ("propagate_components_blocked", "propagate.cu",
+               "ccl_kernel.py:1244"),
+              ("extract_candidates_band", "extract_blocked.cu",
+               "ccl_kernel.py:698"))),
     ]
     print(json.dumps({"kernels": report}))
     print(card_line())
