@@ -3,18 +3,23 @@
 //
 // B3 (chalkydri_threshold, then B4) replaces
 //    chalkydri_tpu/ops/pallas/ccl_kernel.py::threshold_ccl_pallas:
-//    gray -> (tern, labels after exactly `iters` propagation rounds).
+//    gray -> (tern, labels after `iters` propagation rounds).
 // B4 chalkydri_label_components replaces
 //    chalkydri_tpu/ops/pallas/ccl_kernel.py::label_components_pallas:
 //    the same rounds from a given tern.
 //    Both are the stages of B1 (ccl_common.cuh) without its extraction
 //    epilogue, bit-identical to the Pallas kernels; the wrapper of B3
-//    launches the threshold stage and then B4. At [4, 800, 1280] one int32
-//    label page is 16 MB, so the two ping-pong pages no longer sit in L2
-//    as B1's 4 MB do. Bound at that shape: 4.1 MB in and 20.5 MB out (B3),
-//    4.1 MB in and 16.4 MB out (B4), at 3.35 TB/s about 7.3 and 6.1 us;
-//    the 12 rounds of label traffic (~26 B/px each) are what hold them
-//    back.
+//    launches the threshold stage and then B4. The function's bound at
+//    [4, 800, 1280]: 4.1 MB in and 20.5 MB out (B3), 4.1 MB in and 16.4 MB
+//    out (B4), at 3.35 TB/s about 7.3 and 6.1 us. What holds the kernels
+//    back is the rounds: one int32 label page is 16 MB there, two of them
+//    and the connectivity bytes are 37 MB, which neither a block's shared
+//    memory nor (together with the caller's pages) the 50 MB L2 holds, so
+//    each of a round's two passes streams 37 MB. ccl::label keeps that to
+//    the 18 B/px a round needs (fused neighbor-min + row pass, column pass
+//    on shared-memory strips, one connectivity byte a pixel) and, like the
+//    Pallas loop, ends a frame's rounds at its fixed point: the bench scene
+//    runs 6 of its 12.
 //
 // B5 chalkydri_threshold_ccl_exact replaces
 //    chalkydri_tpu/ops/pallas/ccl_kernel.py::threshold_ccl_blocked:
@@ -53,13 +58,14 @@ extern "C" int chalkydri_threshold(const uint8_t* gray, int B, int H, int W,
 }
 
 // B4. tern [B, H, W] u8 in {0, 127, 255} (H, W at most 4096) -> labels
-// [B, H, W] int32 after exactly `iters` rounds. Scratch: bits [B, H, W]
-// u16, scratch [B, H, W] int32.
+// [B, H, W] int32 after `iters` rounds, and in flags[0 .. B) the rounds
+// each frame ran before its fixed point stopped it. Scratch: bits
+// [B, H, W] u8, scratch [B, H, W] int32, flags [(iters + 1) * B] int32.
 extern "C" int chalkydri_label_components(const uint8_t* tern, int B, int H,
-                                          int W, int iters, uint16_t* bits,
+                                          int W, int iters, uint8_t* bits,
                                           int32_t* labels, int32_t* scratch,
-                                          void* stream) {
-  return ccl::label(tern, B, H, W, iters, bits, labels, scratch,
+                                          int32_t* flags, void* stream) {
+  return ccl::label(tern, B, H, W, iters, bits, labels, scratch, flags,
                     (cudaStream_t)stream);
 }
 

@@ -13,9 +13,10 @@ Every non-skip pixel starts with its flat index ``y * W + x`` as label
    ternary value takes its minimum label,
 3. a remask of skip pixels to ``INVALID``.
 
-Exactly ``iters`` rounds run. The JAX package's Pallas kernel stops early
-at a fixed point; the extra rounds here change nothing there, so the
-labels are the same.
+Exactly ``iters`` rounds run. The JAX package's Pallas kernel and the CUDA
+kernels stop early at a fixed point; the extra rounds here change nothing
+there, so the labels are the same. ``rounds_needed`` counts the rounds a
+frame takes to get there.
 
 torch has no associative scan, so the segmented min is the packed form of
 the Pallas kernel's ``_segmented_scan_axis_packed`` in int64: the run id (a
@@ -161,6 +162,25 @@ def label_components_exact(tern: torch.Tensor,
         if torch.equal(nxt, labels):
             return labels.to(torch.int32)
         labels = nxt
+
+
+def rounds_needed(tern: torch.Tensor, iters: int) -> torch.Tensor:
+    """Rounds each frame of ``tern`` needs to reach its fixed point, at
+    most ``iters``: [B] int64, counted with the plain rounds. Frame b needs
+    r rounds when round r + 1 is the first that changes none of its labels
+    (the round at which the JAX package's Pallas kernels leave their loop).
+    One host read a round."""
+    labels = label_components(tern, iters=0)
+    needed = torch.full((tern.shape[0],), iters, dtype=torch.int64,
+                        device=tern.device)
+    for r in range(iters):
+        nxt = label_components(tern, iters=1, labels0=labels)
+        same = (nxt == labels).flatten(1).all(dim=1)
+        needed = torch.where(same, needed.clamp(max=r), needed)
+        if bool(same.all()):
+            break
+        labels = nxt
+    return needed
 
 
 def labels_converged(tern: torch.Tensor, labels: torch.Tensor) -> bool:

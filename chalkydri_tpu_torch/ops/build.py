@@ -32,15 +32,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # gray, B, H, W, iters, min_diff, tile_min, tile_max, tern, bits,
-    # lab_a, lab_b, black, white, payload, stream
-    "chalkydri_ccl_extract": [_P, _I, _I, _I, _I, _I] + [_P] * 10,
+    # lab_a, lab_b, flags, black, white, payload, stream
+    "chalkydri_ccl_extract": [_P, _I, _I, _I, _I, _I] + [_P] * 11,
     # key, payload, B, n, tile_count, tile_first, t, cand_len, cand_pos,
     # stream
     "chalkydri_segment_stats": [_P, _P, _I, _I] + [_P] * 6,
     # gray, B, H, W, min_diff, tile_min, tile_max, tern, stream
     "chalkydri_threshold": [_P, _I, _I, _I, _I] + [_P] * 4,
-    # tern, B, H, W, iters, bits, labels, scratch, stream
-    "chalkydri_label_components": [_P, _I, _I, _I, _I] + [_P] * 4,
+    # tern, B, H, W, iters, bits, labels, scratch, flags, stream
+    "chalkydri_label_components": [_P, _I, _I, _I, _I] + [_P] * 5,
     # gray, B, H, W, wp, min_diff, tile_min, tile_max, tern, parent,
     # labels, stream
     "chalkydri_threshold_ccl_exact": [_P, _I, _I, _I, _I, _I] + [_P] * 6,

@@ -21,7 +21,10 @@ from chalkydri_tpu_torch.detector.threshold import (
 )
 from chalkydri_tpu_torch.ops import build
 
-MAX_SIDE = 4096  # one CUDA block per row/column holds a whole line
+# A row is one CUDA block of up to 1024 threads x 4 pixels; a strip of 8
+# columns x 4096 rows of labels and connectivity bytes (160 KB) fits a
+# block's shared memory.
+MAX_SIDE = 4096
 
 
 def check_frames(x: torch.Tensor, name: str, tiles: bool = True) -> None:
@@ -70,9 +73,10 @@ def threshold_ccl_extract(gray: torch.Tensor, iters: int = 12,
     tile_min = empty((b, h // 4, w // 4), torch.uint8)
     tile_max = empty((b, h // 4, w // 4), torch.uint8)
     tern = empty((b, h, w), torch.uint8)
-    bits = empty((b, h, w), torch.int16)
+    bits = empty((b, h, w), torch.uint8)
     lab_a = empty((b, h, w), torch.int32)
     lab_b = empty((b, h, w), torch.int32)
+    flags = empty(((iters + 1) * b,), torch.int32)
     black = empty((b, 2 * h * w), torch.int32)
     white = empty((b, 2 * h * w), torch.int32)
     payload = empty((b, 2 * h * w), torch.int32)
@@ -82,7 +86,8 @@ def threshold_ccl_extract(gray: torch.Tensor, iters: int = 12,
             gray.data_ptr(), b, h, w, iters, min_diff,
             tile_min.data_ptr(), tile_max.data_ptr(), tern.data_ptr(),
             bits.data_ptr(), lab_a.data_ptr(), lab_b.data_ptr(),
-            black.data_ptr(), white.data_ptr(), payload.data_ptr(), stream)
+            flags.data_ptr(), black.data_ptr(), white.data_ptr(),
+            payload.data_ptr(), stream)
     build.check(rc, "threshold_ccl_extract")
     threshold_ccl_extract.launches += 1
     return black, white, payload

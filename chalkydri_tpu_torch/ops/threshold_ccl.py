@@ -2,10 +2,12 @@
 labeling for the full-resolution quad search (``quad_decimate=1``).
 
 - ``threshold_ccl`` (B3) replaces ``chalkydri_tpu/ops/pallas/ccl_kernel.py::
-  threshold_ccl_pallas``: gray -> (tern, labels after exactly ``iters``
-  propagation rounds). It launches the threshold stage, then B4.
+  threshold_ccl_pallas``: gray -> (tern, labels after ``iters`` propagation
+  rounds). It launches the threshold stage, then B4.
 - ``label_components_ccl`` (B4) replaces ``label_components_pallas``: the
-  same rounds from a given tern.
+  same rounds from a given tern. Like the Pallas kernel it stops each
+  frame at its fixed point, on the card and with no host read;
+  ``label_components_ccl_rounds`` also returns the rounds each frame ran.
 - ``threshold_ccl_exact`` (B5) replaces ``threshold_ccl_blocked``: gray ->
   (tern, labels at the global fixed point), each component labelled with
   its raster-first pixel's index in the frame padded to a multiple of 128
@@ -27,6 +29,7 @@ from chalkydri_tpu_torch.detector.segment import (
     label_components,
     label_components_exact,
     padded_width,
+    rounds_needed,
 )
 from chalkydri_tpu_torch.detector.threshold import (
     MIN_WHITE_BLACK_DIFF,
@@ -68,23 +71,36 @@ threshold_ccl.launches = 0
 
 
 def label_components_ccl(tern: torch.Tensor, iters: int = 12) -> torch.Tensor:
-    """tern [B, H, W] uint8 -> labels [B, H, W] int32 after exactly
-    ``iters`` rounds (``INVALID`` on skip pixels). CUDA tensors launch the
-    kernel; CPU tensors take the plain twin ``segment.label_components``."""
+    """tern [B, H, W] uint8 -> labels [B, H, W] int32 after ``iters``
+    rounds (``INVALID`` on skip pixels). CUDA tensors launch the kernel;
+    CPU tensors take the plain twin ``segment.label_components``."""
     if tern.device.type == "cpu":
         return label_components(tern, iters=iters)
+    return label_components_ccl_rounds(tern, iters)[0]
+
+
+def label_components_ccl_rounds(tern: torch.Tensor, iters: int = 12):
+    """``label_components_ccl`` together with rounds [B] int32, the rounds
+    each frame ran: the kernel stops a frame after the round that changed
+    none of its labels (the rounds it needs and the confirming one, at
+    most ``iters``); the plain twin runs ``iters`` rounds, which gives the
+    same labels, and counts what the kernel would run."""
+    if tern.device.type == "cpu":
+        rounds = (rounds_needed(tern, iters) + 1).clamp(max=iters)
+        return label_components(tern, iters=iters), rounds.to(torch.int32)
     check_frames(tern, "label_components_ccl", tiles=False)
     if iters < 0:
         raise ValueError("label_components_ccl: iters < 0")
     b, h, w = tern.shape
-    bits = build.empty((b, h, w), torch.int16, tern)
+    bits = build.empty((b, h, w), torch.uint8, tern)
     labels = build.empty((b, h, w), torch.int32, tern)
     scratch = build.empty((b, h, w), torch.int32, tern)
+    flags = build.empty(((iters + 1) * b,), torch.int32, tern)
     build.launch("chalkydri_label_components", tern, tern.data_ptr(), b, h,
                  w, iters, bits.data_ptr(), labels.data_ptr(),
-                 scratch.data_ptr())
+                 scratch.data_ptr(), flags.data_ptr())
     label_components_ccl.launches += 1
-    return labels
+    return labels, flags[:b]
 
 
 label_components_ccl.launches = 0

@@ -16,6 +16,13 @@ prints, one line each:
 - a ``torch.profiler`` window over 3 steps: wall ms, the device kernel
   time, the device's busy share and the kernel launches per step.
 
+Before the paths it prints where the capped CCL rounds spend their time
+(``ccl rounds ...`` lines): the device time of each CUDA kernel inside B4
+on the bench scene at [4, 800, 1280], on a page where all 12 rounds bind,
+and inside B1 at [4, 400, 640], with the launches that ran and the
+CUDA-event time of the whole call (the difference is the time between
+launches).
+
 The last line is a JSON object of the same numbers. Fails without CUDA.
 """
 
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import time
 
@@ -135,6 +143,64 @@ def band_stage_times(step, place, frames, gyro, qd: int, edge_cap: int,
     return out
 
 
+def ccl_round_times(frames, calls: int = 10) -> dict[str, dict]:
+    """Device us of every CUDA kernel inside one call of B4 (bench scene
+    and a page on which all rounds bind) and of B1, by kernel name, with
+    its launches a call, and the whole call's CUDA-event us."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from chalkydri_tpu_torch.detector.pipeline import decimate2
+    from chalkydri_tpu_torch.detector.threshold import adaptive_threshold
+    from chalkydri_tpu_torch.ops.ccl_extract import threshold_ccl_extract
+    from chalkydri_tpu_torch.ops.threshold_ccl import label_components_ccl
+    from chalkydri_tpu_torch.tools.scenes import serpentine
+
+    tern = adaptive_threshold(frames)
+    b, h, w = tern.shape
+    worst = torch.from_numpy(np.stack([serpentine(h, w, 200)] * b)).to(
+        frames.device)
+    small = decimate2(frames)
+    cases = {f"B4 bench scene {list(tern.shape)}":
+             lambda: label_components_ccl(tern, 12),
+             f"B4 all 12 rounds bind {list(worst.shape)}":
+             lambda: label_components_ccl(worst, 12),
+             f"B1 bench scene {list(small.shape)}":
+             lambda: threshold_ccl_extract(small, 12)}
+    out = {}
+    for name, fn in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if us > 0:
+                # "void ccl::(anonymous namespace)::name<16>(int*, ..."
+                m = re.search(r"(\w+(<[^>]*>)?)\(", e.key)
+                key = m.group(1) if m else e.key
+                kernels[key] = {"launches_per_call": e.count / calls,
+                                "us_per_call": us / calls}
+        times = []
+        for _ in range(calls):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) * 1e3)
+        out[name] = {"kernels": kernels,
+                     "kernel_us_per_call": sum(k["us_per_call"]
+                                               for k in kernels.values()),
+                     "event_us_per_call": statistics.median(times)}
+    return out
+
+
 def device_share(step, frames, gyro, steps: int = 3) -> dict[str, float]:
     """Wall ms, device kernel ms and launches per step under the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -183,6 +249,15 @@ def main() -> None:
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda")
     report = {"card": card}
+    rounds = ccl_round_times(load_scene("bench", dev)[3])
+    for name, r in rounds.items():
+        parts = ", ".join(f"{k} {v['launches_per_call']:.0f} x "
+                          f"{v['us_per_call'] / v['launches_per_call']:.2f}"
+                          for k, v in r["kernels"].items())
+        print(f"ccl rounds {name}: {parts} us; kernels "
+              f"{r['kernel_us_per_call']:.1f} us, whole call "
+              f"{r['event_us_per_call']:.1f} us [{card}]", flush=True)
+    report["ccl rounds"] = rounds
     for path, scene, qd in (("qd2 bench", "bench", 2), ("qd1 bench", "bench", 1),
                             ("qd1 deployed", "deployed", 1),
                             ("spatial qd2", "spatial", 2),

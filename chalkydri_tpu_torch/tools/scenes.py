@@ -13,6 +13,11 @@ onto a uniform gray frame with numpy (float64 geometry, bilinear sampling).
 
 ``tiny_rig`` and ``render_tiny`` are the dry run's scene: a three-tag
 layout of its own with two tags 0.6 m before the camera.
+
+``serpentine``, ``blob_tern`` and ``mixed_terns`` are ternary pages that
+stress the capped CCL rounds (kernels B1, B3 and B4), at the shapes
+``CCL_STRESS_SHAPES``; the card run and the CPU tests against the JAX
+package share them.
 """
 
 from __future__ import annotations
@@ -56,6 +61,50 @@ PROD_CALIB = {"fx": 900.0, "fy": 900.0, "cx": 640.0, "cy": 400.0, "k1": 0.0,
 TINY_MOUNT = dict(MOUNT, z=1.1)  # camera height == tag height
 TINY_ROBOT = (10.7, 4.4, 0.0)  # 0.6 m from the tag wall at x = 11.3
 TINY_TAGS = (1, 2)
+
+
+# [B, H, W] for the CCL rounds: widths that are no multiple of 32, of 8 or
+# of 4, one strip of columns 4096 rows tall, and 4096-pixel rows.
+CCL_STRESS_SHAPES = ((1, 52, 200), (2, 100, 36), (1, 7, 9), (1, 4096, 8),
+                     (1, 8, 4096))
+
+
+def serpentine(h: int = 64, w: int = 128, stripes: int = 20) -> np.ndarray:
+    """[h, w] uint8: a white snake on black (vertical 1-px stripes joined
+    alternately at the top and bottom row). Its minimum label moves one
+    stripe a round, so it needs ``stripes - 1`` CCL rounds: with 20 stripes
+    the cap of 12 binds. Every tile neighborhood has contrast, so as a
+    gray frame it thresholds to itself."""
+    g = np.zeros((h, w), np.uint8)
+    cols = np.linspace(2, w - 3, stripes).astype(int)
+    g[:, cols] = 255
+    for i in range(len(cols) - 1):
+        g[0 if i % 2 == 0 else h - 1, cols[i]:cols[i + 1] + 1] = 255
+    return g
+
+
+def blob_tern(shape, seed: int) -> np.ndarray:
+    """``shape`` = [B, H, W] uint8 in {0, 127, 255}: 4x4 blocks of random
+    value with 8 % of the pixels redrawn, so runs of every length start
+    and end at every offset."""
+    rng = np.random.default_rng(seed)
+    b, h, w = shape
+    values = np.array([0, 127, 255], np.uint8)
+    t = rng.choice(values, size=(b, -(-h // 4), -(-w // 4)), p=(.45, .1, .45))
+    t = np.repeat(np.repeat(t, 4, axis=1), 4, axis=2)[:, :h, :w]
+    redrawn = rng.random(shape) < 0.08
+    return np.ascontiguousarray(
+        np.where(redrawn, rng.choice(values, size=shape), t))
+
+
+def mixed_terns(h: int, w: int, stripes: int, seed: int) -> np.ndarray:
+    """[4, h, w] uint8 whose frames leave the CCL rounds at different
+    times: a flat white page (needs 1 round), a snake of 5 stripes (4
+    rounds), blobs (over a dozen) and a snake of ``stripes`` stripes."""
+    return np.stack([np.full((h, w), 255, np.uint8),
+                     serpentine(h, w, 5),
+                     blob_tern((1, h, w), seed)[0],
+                     serpentine(h, w, stripes)])
 
 
 def homography(src: np.ndarray, dst: np.ndarray) -> np.ndarray:

@@ -18,12 +18,16 @@
    PyTorch twin on the same CUDA tensors (bit-identical required), times
    both with CUDA events, and checks both again on edge cases (a scene
    where the CCL round cap binds, noise, adversarial run layouts, row
-   counts under one tile and off the 128-row chunk): B1 and B2 at the
-   ``quad_decimate=2`` shapes, B3 and B4 at [4, 800, 1280], B5 at
-   [2, 1304, 1600], B6 (both entries) and B7 (whole frame and band entry)
-   at the row bands of the spatial scene, 2 x 1312x1600 in four bands of
-   328 rows (and of 164x800 after decimation), plus a snake that crosses
-   every seam of four bands;
+   counts under one tile and off the 128-row chunk; for the CCL rounds of
+   B1, B3 and B4 also odd widths, a 4096-row strip, 4096-pixel rows, a
+   batch whose frames reach their fixed points at different rounds, the
+   cap at 0, 1, 11, 12 and 13 rounds, the rounds each frame ran against
+   the rounds it needs, and the time of a page on which all 12 rounds
+   bind): B1 and B2 at the ``quad_decimate=2`` shapes, B3 and B4 at
+   [4, 800, 1280], B5 at [2, 1304, 1600], B6 (both entries) and B7
+   (whole frame and band entry) at the row bands of the spatial scene,
+   2 x 1312x1600 in four bands of 328 rows (and of 164x800 after
+   decimation), plus a snake that crosses every seam of four bands;
 5. drives four paths through the entry points (``build_rig_from_config``
    -> ``make_vision_pipeline`` / ``make_sharded_vision_pipeline``), each
    with the launch counts set to 0 just before it and read just after:
@@ -58,6 +62,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+from chalkydri_tpu_torch.tools.scenes import serpentine  # noqa: E402
 
 GYRO_OFFSETS = (0.0, 0.01, -0.01, 0.02, -0.02)  # rad, one per step
 POSE_TOL_M = 0.02
@@ -122,22 +128,6 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def rounds_needed(tern, iters: int) -> int:
-    """CCL rounds this tern needs, at most ``iters`` (the Pallas kernels
-    stop at the fixed point), counted with the plain rounds."""
-    import torch
-
-    from chalkydri_tpu_torch.detector.segment import label_components
-
-    labels = label_components(tern, iters=0)
-    for r in range(iters):
-        nxt = label_components(tern, iters=1, labels0=labels)
-        if torch.equal(nxt, labels):
-            return r
-        labels = nxt
-    return iters
-
-
 class plain_twins:
     """Within this context the detector calls the kernels' plain twins on
     CUDA tensors (the module attributes its functions look up per call)."""
@@ -186,17 +176,6 @@ class plain_twins:
         return False
 
 
-def serpentine(h: int = 64, w: int = 128, stripes: int = 20) -> np.ndarray:
-    """A white snake on black (vertical 1-px stripes joined alternately at
-    the top and bottom row): 12 CCL rounds do not converge on it."""
-    g = np.zeros((h, w), np.uint8)
-    cols = np.linspace(2, w - 3, stripes).astype(int)
-    g[:, cols] = 255
-    for i in range(len(cols) - 1):
-        g[0 if i % 2 == 0 else h - 1, cols[i]:cols[i + 1] + 1] = 255
-    return g
-
-
 def require_equal(label: str, names, got, want) -> None:
     import torch
 
@@ -204,6 +183,90 @@ def require_equal(label: str, names, got, want) -> None:
     for name, g, w in zip(names, got, want):
         if not torch.equal(g, w):
             raise AssertionError(f"{label}: {name} differs from its plain twin")
+
+
+def ccl_round_checks(dev, card, tern_scene) -> None:
+    """The capped CCL rounds, reached through B4, B3 and B1, against their
+    twins where the index math and the exit at the fixed point are
+    stressed; the rounds each frame ran against the rounds it needs; and
+    the time of B4 on a page where all 12 rounds bind. ``tern_scene`` is
+    one thresholded frame of the bench scene."""
+    import torch
+
+    from chalkydri_tpu_torch.detector.segment import (
+        label_components,
+        rounds_needed,
+    )
+    from chalkydri_tpu_torch.ops.ccl_extract import (
+        threshold_ccl_extract,
+        threshold_ccl_extract_plain,
+    )
+    from chalkydri_tpu_torch.ops.threshold_ccl import (
+        label_components_ccl_rounds,
+        threshold_ccl,
+        threshold_ccl_plain,
+    )
+    from chalkydri_tpu_torch.tools.scenes import (
+        CCL_STRESS_SHAPES,
+        blob_tern,
+        mixed_terns,
+    )
+
+    def check_b4(label, tern, iters=12):
+        """Labels equal to the twin's; every frame ran the rounds it
+        needs and the confirming one, at most ``iters``."""
+        got, ran = label_components_ccl_rounds(tern, iters)
+        require_equal(label, ("labels",), (got,),
+                      (label_components(tern, iters=iters),))
+        want = (rounds_needed(tern, iters) + 1).clamp(max=iters)
+        if ran.tolist() != want.tolist():
+            raise AssertionError(f"{label}: frames ran {ran.tolist()} rounds,"
+                                 f" expected {want.tolist()}")
+        return ran.tolist()
+
+    rng = np.random.default_rng(13)
+    for shape in CCL_STRESS_SHAPES:
+        check_b4(f"B4 {shape}", torch.from_numpy(blob_tern(shape, 1)).to(dev))
+        if shape[1] % 4 or shape[2] % 4:
+            continue  # B1 and B3 threshold in 4x4 tiles
+        gray = torch.from_numpy(
+            rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        require_equal(f"B3 {shape}", ("tern", "labels"),
+                      threshold_ccl(gray, iters=12),
+                      threshold_ccl_plain(gray, iters=12))
+        require_equal(f"B1 {shape}", ("black", "white", "payload"),
+                      threshold_ccl_extract(gray, iters=12),
+                      threshold_ccl_extract_plain(gray, iters=12))
+    print(f"CCL rounds: B4 bit-identical at "
+          f"{[list(s) for s in CCL_STRESS_SHAPES]}, B1 and B3 on noise at "
+          f"those that are multiples of 4", flush=True)
+
+    serp = torch.from_numpy(serpentine()[None]).to(dev)
+    ran = {iters: check_b4(f"B4 serpentine iters={iters}", serp, iters)[0]
+           for iters in (0, 1, 11, 12, 13)}
+    mixed = check_b4("B4 mixed batch", torch.from_numpy(
+        mixed_terns(64, 128, 20, 3)).to(dev))
+    h, w = tern_scene.shape
+    big = torch.from_numpy(mixed_terns(h, w, 200, 3)).to(dev)
+    big[2] = tern_scene
+    mixed_big = check_b4(f"B4 mixed batch {tuple(big.shape)}", big)
+    if len(set(mixed)) < 3 or len(set(mixed_big)) < 3:
+        raise AssertionError(f"mixed batches: frames ran {mixed} and "
+                             f"{mixed_big} rounds, exits do not differ")
+    print(f"CCL rounds run per frame (needed + 1, at most iters), labels "
+          f"bit-identical: serpentine at iters 0, 1, 11, 12, 13 ran "
+          f"{list(ran.values())}; flat, 5-stripe snake, blobs, 20-stripe "
+          f"snake at [4, 64, 128] ran {mixed}; flat, 5-stripe snake, bench "
+          f"scene, 200-stripe snake at {list(big.shape)} ran {mixed_big}",
+          flush=True)
+
+    worst = torch.from_numpy(
+        np.stack([serpentine(h, w, 200)] * 4)).to(dev)
+    if check_b4("B4 all rounds bind", worst) != [12] * 4:
+        raise AssertionError("the worst case left its rounds early")
+    time_pair("B4 label_components_ccl, all 12 rounds bind", worst.shape,
+              card, lambda: label_components_ccl_rounds(worst, 12),
+              lambda: label_components(worst, iters=12))
 
 
 def edge_cases(dev, shape) -> None:
@@ -610,7 +673,10 @@ def main() -> None:
         threshold_ccl_exact_plain,
         threshold_ccl_plain,
     )
-    from chalkydri_tpu_torch.detector.segment import label_components
+    from chalkydri_tpu_torch.detector.segment import (
+        label_components,
+        rounds_needed,
+    )
     from chalkydri_tpu_torch.detector.threshold import adaptive_threshold
     from chalkydri_tpu_torch.parallel.mesh import make_mesh
     from chalkydri_tpu_torch.parallel.pipeline import (
@@ -647,7 +713,7 @@ def main() -> None:
         lambda: threshold_ccl_extract(small, iters=12),
         lambda: threshold_ccl_extract_plain(small, iters=12))
     b1_px = small.numel()
-    b1_rounds = rounds_needed(adaptive_threshold(small), 12)
+    b1_rounds = int(rounds_needed(adaptive_threshold(small), 12).max())
 
     black, white, payload, _ = compact_candidates(
         *got, width=small.shape[2], max_points=MAX_EDGE_POINTS)
@@ -693,9 +759,11 @@ def main() -> None:
         lambda: label_components_ccl(tern3, iters=12),
         lambda: label_components(tern3, iters=12))
     b3_px = frames.numel()
-    b3_rounds = rounds_needed(tern3, 12)
+    b3_rounds = int(rounds_needed(tern3, 12).max())
     print(f"B3/B4 serpentine: bit-identical where the 12-round cap binds; "
-          f"bench scene needs {b3_rounds} of 12 rounds", flush=True)
+          f"bench scene needs {b3_rounds} of 12 rounds (B1's decimated "
+          f"frames {b1_rounds})", flush=True)
+    ccl_round_checks(dev, card, tern3[0])
 
     # B5 at the deployed shape, and on the serpentine.
     got5 = threshold_ccl_exact(dep_frames)
