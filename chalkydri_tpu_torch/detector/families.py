@@ -1,9 +1,10 @@
 """AprilTag family codebooks (port of ``chalkydri_tpu/detector/families.py``).
 
-The codebooks are the JAX package's data files, read by path
-(``chalkydri_tpu/detector/_data/<name>.npz``) without importing that
-package. Code words stay int64: torch supports few operations on uint32,
-and every code fits in 63 bits.
+The codebooks are the port's own copies of the JAX package's data files,
+``chalkydri_tpu_torch/detector/_data/<name>.npz`` (tag16h5, tag25h9,
+tag36h10, tag36h11; ``tests/test_torch_modules.py`` holds them equal to
+the JAX package's tables). Code words stay int64: torch supports few
+operations on uint32, and every code fits in 63 bits.
 
 Bit packing convention (``chalkydri_tpu/tools/gen_families.py``): bit
 (r, c) of the canonical upright rendering, row-major, MSB-first; bit = 1
@@ -18,8 +19,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-_DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                         "..", "chalkydri_tpu", "detector", "_data")
+_DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_data")
 
 DEFAULT_FAMILY = "tag36h11"
 DEFAULT_BITS_CORRECTED = 3

@@ -34,8 +34,10 @@ _SIGNATURES = {
     # gray, B, H, W, iters, min_diff, tile_min, tile_max, tern, bits,
     # lab_a, lab_b, flags, black, white, payload, stream
     "chalkydri_ccl_extract": [_P, _I, _I, _I, _I, _I] + [_P] * 11,
-    # key, payload, B, n, tile_count, tile_first, t, cand_len, cand_pos,
+    # gray, B, H, W, C, iters, min_diff, black, white, payload, rounds,
     # stream
+    "chalkydri_ccl_extract_cluster": [_P] + [_I] * 6 + [_P] * 5,
+    # key, payload, B, n, status, epoch, t, cand_len, cand_pos, stream
     "chalkydri_segment_stats": [_P, _P, _I, _I] + [_P] * 6,
     # gray, B, H, W, min_diff, tile_min, tile_max, tern, stream
     "chalkydri_threshold": [_P, _I, _I, _I, _I] + [_P] * 4,
@@ -124,13 +126,32 @@ def empty(shape, dtype, like: torch.Tensor) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=like.device)
 
 
-def launch(entry: str, like: torch.Tensor, *args) -> None:
+def _on_current_card(like: torch.Tensor) -> bool:
+    index = like.device.index
+    return index is None or index == torch.cuda.current_device()
+
+
+def stream_of(like: torch.Tensor) -> int:
+    """The handle of the current stream of ``like``'s card."""
+    if _on_current_card(like):
+        return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(like.device).cuda_stream
+
+
+def call(entry: str, like: torch.Tensor, *args) -> int:
     """Call the library's C entry point ``entry`` with ``args`` and the
-    current stream of ``like``'s card; raise on a launch error."""
+    current stream of ``like``'s card; returns its code. A device context
+    is entered only when that card is not the current one."""
+    fn = getattr(kernel_library(), entry)
+    if _on_current_card(like):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(like.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(kernel_library(), entry)(*args, stream)
-    check(rc, entry)
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def launch(entry: str, like: torch.Tensor, *args) -> None:
+    """``call``, raising on a launch error."""
+    check(call(entry, like, *args), entry)
 
 
 def check(rc: int, name: str) -> None:

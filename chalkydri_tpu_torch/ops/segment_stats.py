@@ -24,6 +24,24 @@ CHUNK = 128
 _INT_MAX = 2 ** 31 - 1
 _TILE = 1024  # rows per CUDA block
 
+# The kernel's tile status words, kept per (card, stream) between calls
+# and zero when made: [1 + tiles] int64, the first word the call counter
+# and the count of a call's finished blocks (two 32-bit halves). A call
+# finds its tiles' words by the sequence number the counter gives it, so
+# nothing is cleared between calls.
+_STATUS: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _status_words(like: torch.Tensor, tiles: int) -> torch.Tensor:
+    key = (like.device, build.stream_of(like))
+    buf = _STATUS.get(key)
+    if buf is None or buf.numel() < 1 + tiles:
+        buf = torch.zeros(1 + max(tiles, 2 * (buf.numel() if buf is not None
+                                               else 0)),
+                          dtype=torch.int64, device=like.device)
+        _STATUS[key] = buf
+    return buf
+
 
 def _chunk_top(grid: torch.Tensor):
     """Max of each row of [B, nc, 128] and the lowest lane holding it."""
@@ -91,21 +109,20 @@ def segment_stats(s_key: torch.Tensor, s_payload: torch.Tensor):
         raise ValueError(f"segment_stats: n={n} must be in (0, 2^24 - 128)")
     if n % CHUNK:
         s_key, s_payload = pad_to_chunks(s_key, s_payload)
+    if s_key.data_ptr() % 16:  # the kernel loads 16 bytes a thread
+        s_key = s_key.clone()
+    if s_payload.data_ptr() % 16:
+        s_payload = s_payload.clone()
     n_pad = s_key.shape[1]
-    dev = s_key.device
-    ntiles = -(-n_pad // _TILE)
-    tile_count = torch.empty((b, ntiles), dtype=torch.int32, device=dev)
-    tile_first = torch.empty((b, ntiles), dtype=torch.int32, device=dev)
-    t = torch.empty((b, n_pad), dtype=torch.int32, device=dev)
-    cand_len = torch.empty((b, 2 * n_pad // CHUNK), dtype=torch.int32, device=dev)
-    cand_pos = torch.empty((b, 2 * n_pad // CHUNK), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = build.kernel_library().chalkydri_segment_stats(
-            s_key.data_ptr(), s_payload.data_ptr(), b, n_pad,
-            tile_count.data_ptr(), tile_first.data_ptr(), t.data_ptr(),
-            cand_len.data_ptr(), cand_pos.data_ptr(), stream)
-    build.check(rc, "segment_stats")
+    nc2 = 2 * n_pad // CHUNK
+    out = torch.empty(b * (n_pad + 2 * nc2), dtype=torch.int32,
+                      device=s_key.device)
+    t, cand_len, cand_pos = (
+        x.view(b, -1) for x in out.split([b * n_pad, b * nc2, b * nc2]))
+    status = _status_words(s_key, b * -(-n_pad // _TILE)).data_ptr()
+    build.launch("chalkydri_segment_stats", s_key, s_key.data_ptr(),
+                 s_payload.data_ptr(), b, n_pad, status + 8, status,
+                 t.data_ptr(), cand_len.data_ptr(), cand_pos.data_ptr())
     segment_stats.launches += 1
     if n_pad != n:
         t = t[:, :n].contiguous()

@@ -19,9 +19,15 @@ prints, one line each:
 Before the paths it prints where the capped CCL rounds spend their time
 (``ccl rounds ...`` lines): the device time of each CUDA kernel inside B4
 on the bench scene at [4, 800, 1280], on a page where all 12 rounds bind,
-and inside B1 at [4, 400, 640], with the launches that ran and the
-CUDA-event time of the whole call (the difference is the time between
-launches).
+and inside B1 at [4, 400, 640] and at the deployed rig's [2, 652, 800]
+(one cluster launch each), with the launches that ran and the
+CUDA-event time of the whole call (the difference is host and launch
+time); then a ``B2 ...`` line of the same form for B2 on the bench
+scene's sorted candidates, [4, 65536].
+
+To set two trees side by side in one call, run this file as a script
+with ``PYTHONPATH`` at the other tree's root: it then measures that
+tree's package.
 
 The last line is a JSON object of the same numbers. Fails without CUDA.
 """
@@ -143,16 +149,61 @@ def band_stage_times(step, place, frames, gyro, qd: int, edge_cap: int,
     return out
 
 
-def ccl_round_times(frames, calls: int = 10) -> dict[str, dict]:
-    """Device us of every CUDA kernel inside one call of B4 (bench scene
-    and a page on which all rounds bind) and of B1, by kernel name, with
-    its launches a call, and the whole call's CUDA-event us."""
-    import numpy as np
+def device_times(fn, calls: int = 10) -> dict[str, dict]:
+    """The device time of every CUDA kernel that ``calls`` calls of
+    ``fn`` launch, by ``torch.profiler``: {kernel name: {"launches_per_call",
+    "us_per_call"}}, after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            # "void ccl::(anonymous namespace)::name<16>(int*, ..."
+            m = re.search(r"(\w+(<[^>]*>)?)\(", e.key)
+            key = m.group(1) if m else e.key
+            kernels[key] = {"launches_per_call": e.count / calls,
+                            "us_per_call": us / calls}
+    return kernels
+
+
+def event_us(fn, calls: int = 10) -> float:
+    """Median CUDA-event us of one call of ``fn``."""
+    times = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3)
+    return statistics.median(times)
+
+
+def ccl_round_times(frames, deployed, calls: int = 10) -> dict[str, dict]:
+    """Device us of every CUDA kernel inside one call of B4 (bench scene
+    and a page on which all rounds bind), of B1 (bench and ``deployed``
+    scene, decimated) and of B2, by kernel name, with its launches a call,
+    and the whole call's CUDA-event us."""
+    import numpy as np
+
+    from chalkydri_tpu_torch.detector.cluster import (
+        MAX_EDGE_POINTS,
+        compact_candidates,
+        sort_candidates,
+    )
     from chalkydri_tpu_torch.detector.pipeline import decimate2
     from chalkydri_tpu_torch.detector.threshold import adaptive_threshold
     from chalkydri_tpu_torch.ops.ccl_extract import threshold_ccl_extract
+    from chalkydri_tpu_torch.ops.segment_stats import segment_stats
     from chalkydri_tpu_torch.ops.threshold_ccl import label_components_ccl
     from chalkydri_tpu_torch.tools.scenes import serpentine
 
@@ -160,44 +211,28 @@ def ccl_round_times(frames, calls: int = 10) -> dict[str, dict]:
     b, h, w = tern.shape
     worst = torch.from_numpy(np.stack([serpentine(h, w, 200)] * b)).to(
         frames.device)
-    small = decimate2(frames)
+    small, dep_small = decimate2(frames), decimate2(deployed)
+    black, white, payload, _ = compact_candidates(
+        *threshold_ccl_extract(small, 12), width=small.shape[2],
+        max_points=MAX_EDGE_POINTS)
+    s_key, s_payload = sort_candidates(black, white, payload, MAX_EDGE_POINTS)
     cases = {f"B4 bench scene {list(tern.shape)}":
              lambda: label_components_ccl(tern, 12),
              f"B4 all 12 rounds bind {list(worst.shape)}":
              lambda: label_components_ccl(worst, 12),
              f"B1 bench scene {list(small.shape)}":
-             lambda: threshold_ccl_extract(small, 12)}
+             lambda: threshold_ccl_extract(small, 12),
+             f"B1 deployed scene {list(dep_small.shape)}":
+             lambda: threshold_ccl_extract(dep_small, 12),
+             f"B2 bench scene {list(s_key.shape)}":
+             lambda: segment_stats(s_key, s_payload)}
     out = {}
     for name, fn in cases.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        kernels = {}
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-            if us > 0:
-                # "void ccl::(anonymous namespace)::name<16>(int*, ..."
-                m = re.search(r"(\w+(<[^>]*>)?)\(", e.key)
-                key = m.group(1) if m else e.key
-                kernels[key] = {"launches_per_call": e.count / calls,
-                                "us_per_call": us / calls}
-        times = []
-        for _ in range(calls):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) * 1e3)
+        kernels = device_times(fn, calls)
         out[name] = {"kernels": kernels,
                      "kernel_us_per_call": sum(k["us_per_call"]
                                                for k in kernels.values()),
-                     "event_us_per_call": statistics.median(times)}
+                     "event_us_per_call": event_us(fn, calls)}
     return out
 
 
@@ -249,12 +284,14 @@ def main() -> None:
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda")
     report = {"card": card}
-    rounds = ccl_round_times(load_scene("bench", dev)[3])
+    rounds = ccl_round_times(load_scene("bench", dev)[3],
+                             load_scene("deployed", dev)[3])
     for name, r in rounds.items():
         parts = ", ".join(f"{k} {v['launches_per_call']:.0f} x "
                           f"{v['us_per_call'] / v['launches_per_call']:.2f}"
                           for k, v in r["kernels"].items())
-        print(f"ccl rounds {name}: {parts} us; kernels "
+        print(f"{'' if name.startswith('B2') else 'ccl rounds '}{name}: "
+              f"{parts} us; kernels "
               f"{r['kernel_us_per_call']:.1f} us, whole call "
               f"{r['event_us_per_call']:.1f} us [{card}]", flush=True)
     report["ccl rounds"] = rounds

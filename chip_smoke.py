@@ -23,7 +23,12 @@
    batch whose frames reach their fixed points at different rounds, the
    cap at 0, 1, 11, 12 and 13 rounds, the rounds each frame ran against
    the rounds it needs, and the time of a page on which all 12 rounds
-   bind): B1 and B2 at the ``quad_decimate=2`` shapes, B3 and B4 at
+   bind): B1 and B2 at the ``quad_decimate=2`` shapes (B1 also at the
+   deployed rig's [2, 652, 800], on a frame over its cluster route's
+   capacity, which takes the chain of launches, and with the rounds each
+   frame ran; B2 also at [4, 65536] with a run over three tiles and at
+   row counts off its 1024-row tile; both with their device time and
+   device launches a call by ``torch.profiler``), B3 and B4 at
    [4, 800, 1280], B5 at [2, 1304, 1600], B6 (both entries) and B7
    (whole frame and band entry) at the row bands of the spatial scene,
    2 x 1312x1600 in four bands of 328 rows (and of 164x800 after
@@ -197,9 +202,11 @@ def ccl_round_checks(dev, card, tern_scene) -> None:
         label_components,
         rounds_needed,
     )
+    from chalkydri_tpu_torch.detector.threshold import adaptive_threshold
     from chalkydri_tpu_torch.ops.ccl_extract import (
         threshold_ccl_extract,
         threshold_ccl_extract_plain,
+        threshold_ccl_extract_rounds,
     )
     from chalkydri_tpu_torch.ops.threshold_ccl import (
         label_components_ccl_rounds,
@@ -219,6 +226,20 @@ def ccl_round_checks(dev, card, tern_scene) -> None:
         require_equal(label, ("labels",), (got,),
                       (label_components(tern, iters=iters),))
         want = (rounds_needed(tern, iters) + 1).clamp(max=iters)
+        if ran.tolist() != want.tolist():
+            raise AssertionError(f"{label}: frames ran {ran.tolist()} rounds,"
+                                 f" expected {want.tolist()}")
+        return ran.tolist()
+
+    def check_b1(label, gray, iters=12):
+        """B1's pages equal to the twin's; every frame ran the rounds its
+        thresholded frame needs and the confirming one, at most
+        ``iters``."""
+        got, ran = threshold_ccl_extract_rounds(gray, iters)
+        require_equal(label, ("black", "white", "payload"), got,
+                      threshold_ccl_extract_plain(gray, iters))
+        want = (rounds_needed(adaptive_threshold(gray), iters) + 1).clamp(
+            max=iters)
         if ran.tolist() != want.tolist():
             raise AssertionError(f"{label}: frames ran {ran.tolist()} rounds,"
                                  f" expected {want.tolist()}")
@@ -253,6 +274,17 @@ def ccl_round_checks(dev, card, tern_scene) -> None:
     if len(set(mixed)) < 3 or len(set(mixed_big)) < 3:
         raise AssertionError(f"mixed batches: frames ran {mixed} and "
                              f"{mixed_big} rounds, exits do not differ")
+    # B1, on both routes: the snake thresholds to itself; the mixed
+    # batches as gray frames (the [4, 800, 1280] one takes the chain)
+    b1_ran = [check_b1(f"B1 serpentine iters={iters}", serp, iters)[0]
+              for iters in (0, 1, 11, 12, 13)]
+    b1_mixed = check_b1("B1 mixed batch", torch.from_numpy(
+        mixed_terns(64, 128, 20, 3)).to(dev))
+    b1_mixed_big = check_b1(f"B1 mixed batch {tuple(big.shape)}", big)
+    print(f"B1 rounds run per frame (needed + 1, at most iters), pages "
+          f"bit-identical: serpentine at iters 0, 1, 11, 12, 13 ran "
+          f"{b1_ran}; mixed batch [4, 64, 128] ran {b1_mixed}; "
+          f"{list(big.shape)} ran {b1_mixed_big}", flush=True)
     print(f"CCL rounds run per frame (needed + 1, at most iters), labels "
           f"bit-identical: serpentine at iters 0, 1, 11, 12, 13 ran "
           f"{list(ran.values())}; flat, 5-stripe snake, blobs, 20-stripe "
@@ -310,6 +342,55 @@ def edge_cases(dev, shape) -> None:
         km, pm = k[:, :m].contiguous(), p[:, :m].contiguous()
         require_equal(f"B2 at n = {m}", names, segment_stats(km, pm),
                       segment_stats_plain(km, pm))
+    # [4, 65536] as the main path's, with a valid run over three tile
+    # boundaries (rows 1000-3999) among random runs, an invalid tail, and
+    # row counts that end inside a 1024-row tile
+    n = 65536
+    lengths = rng.integers(1, 400, 600)
+    lengths[0], lengths[1] = 1000, 3000
+    runs = np.repeat(np.sort(rng.choice(1 << 30, 600, replace=False)),
+                     lengths)[:n - 5000]
+    keys = np.stack([np.concatenate([runs, np.full(n - len(runs), int_max)]),
+                     np.full(n, 7), np.arange(n), np.full(n, int_max)])
+    k = torch.from_numpy(keys.astype(np.int32)).to(dev)
+    p = torch.from_numpy(
+        rng.integers(0, 1 << 29, keys.shape, dtype=np.int32)).to(dev)
+    for m in (n, 65152, 5000):
+        km, pm = k[:, :m].contiguous(), p[:, :m].contiguous()
+        require_equal(f"B2 at [4, {m}]", names, segment_stats(km, pm),
+                      segment_stats_plain(km, pm))
+
+
+def routes(dev, card, dep_small, big) -> None:
+    """B1 on both routes of its wrapper: the deployed rig's decimated
+    frames [2, 652, 800] (the cluster route, 16 CTAs a frame), timed; and
+    one frame over the cluster route's capacity (1280x800, the chain of
+    launches), which only direct callers send."""
+    from chalkydri_tpu_torch.ops.ccl_extract import (
+        cluster_size,
+        threshold_ccl_extract,
+        threshold_ccl_extract_plain,
+    )
+
+    chain = threshold_ccl_extract.chain_launches
+    require_equal("B1 deployed qd2", ("black", "white", "payload"),
+                  threshold_ccl_extract(dep_small, iters=12),
+                  threshold_ccl_extract_plain(dep_small, iters=12))
+    if threshold_ccl_extract.chain_launches != chain:
+        raise AssertionError("B1 deployed qd2: took the chain route")
+    time_kernel(f"B1 threshold_ccl_extract deployed qd2, cluster of "
+                f"{cluster_size(*dep_small.shape)}", dep_small.shape, card,
+                lambda: threshold_ccl_extract(dep_small, iters=12),
+                lambda: threshold_ccl_extract_plain(dep_small, iters=12))
+    require_equal("B1 chain route", ("black", "white", "payload"),
+                  threshold_ccl_extract(big, iters=12),
+                  threshold_ccl_extract_plain(big, iters=12))
+    if (cluster_size(*big.shape) is not None
+            or threshold_ccl_extract.chain_launches != chain + 1):
+        raise AssertionError("B1 chain route: not taken")
+    print(f"B1 routes: [2, 652, 800] on the cluster route, "
+          f"{list(big.shape)} on the chain route, both bit-identical",
+          flush=True)
 
 
 def band_phases(dev, card, frames_sp):
@@ -625,6 +706,23 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
             "library_ms": None}  # no single PyTorch call computes these
 
 
+def time_kernel(label, shape, card, kernel, plain):
+    """``time_pair`` with the kernel's device time a call (the sum of the
+    kernels ``torch.profiler`` sees) and its device launches a call, on
+    the same line."""
+    from chalkydri_tpu_torch.tools.perfprobe import device_times
+
+    ms = statistics.median(cuda_times_ms(kernel))
+    plain_ms = statistics.median(cuda_times_ms(plain))
+    kernels = device_times(kernel)
+    device_ms = sum(k["us_per_call"] for k in kernels.values()) / 1e3
+    launches = sum(k["launches_per_call"] for k in kernels.values())
+    print(f"{label} {tuple(shape)}: kernel {ms:.4f} ms (device {device_ms:.4f}"
+          f" ms, {launches:g} device launches a call), plain {plain_ms:.4f} "
+          f"ms, bit-identical [{card}]", flush=True)
+    return ms, plain_ms, device_ms, launches
+
+
 def time_pair(label, shape, card, kernel, plain):
     """Median CUDA-event ms of the kernel's wrapper and of its twin."""
     ms = statistics.median(cuda_times_ms(kernel))
@@ -708,7 +806,7 @@ def main() -> None:
     want = threshold_ccl_extract_plain(small, iters=12)
     require_equal("B1", ("black", "white", "payload"), got, want)
     b1_err = max_abs_err(got, want)
-    b1_ms, b1_plain_ms = time_pair(
+    b1_ms, b1_plain_ms, b1_dev_ms, b1_dev_launches = time_kernel(
         "B1 threshold_ccl_extract", small.shape, card,
         lambda: threshold_ccl_extract(small, iters=12),
         lambda: threshold_ccl_extract_plain(small, iters=12))
@@ -722,16 +820,18 @@ def main() -> None:
     want2 = segment_stats_plain(s_key, s_payload)
     require_equal("B2", ("t", "cand_len", "cand_pos"), got2, want2)
     b2_err = max_abs_err(got2, want2)
-    b2_ms, b2_plain_ms = time_pair(
+    b2_ms, b2_plain_ms, b2_dev_ms, b2_dev_launches = time_kernel(
         "B2 segment_stats", s_key.shape, card,
         lambda: segment_stats(s_key, s_payload),
         lambda: segment_stats_plain(s_key, s_payload))
     b2_n = s_key.numel()
 
+    routes(dev, card, decimate2(dep_frames), frames[:1])
     edge_cases(dev, tuple(small.shape))
     print("edge cases: B1 and B2 bit-identical to their twins where the CCL "
-          "round cap binds, on noise, on adversarial run layouts, and at "
-          "n = 256 and 200 rows", flush=True)
+          "round cap binds, on noise, on adversarial run layouts, at "
+          "n = 256 and 200 rows, and at [4, 65536], 65152 and 5000 rows with "
+          "a run over three 1024-row tiles", flush=True)
 
     # B3 and B4 at the qd=1 bench shape, and where the round cap binds.
     got3 = threshold_ccl(frames, iters=12)
@@ -796,9 +896,12 @@ def main() -> None:
                 "propagate_components_blocked": propagate_components_blocked,
                 "extract_candidates_band": extract_candidates_band}
     step = make_vision_pipeline(layout, params, rc, device=dev)
+    threshold_ccl_extract.chain_launches = 0
     qd2 = drive_path("qd2 main path", step, frames, poses, counters,
                      ("threshold_ccl_extract", "segment_stats"), card,
                      TIMED_STEPS["qd2"])
+    if threshold_ccl_extract.chain_launches:
+        raise AssertionError("qd2 main path: B1 took the chain route")
     step_qd1 = make_vision_pipeline(layout, params, rc, device=dev,
                                     detector_kwargs={"quad_decimate": 1})
     qd1 = drive_path("qd1 bench path", step_qd1, frames, poses, counters,
@@ -866,17 +969,19 @@ def main() -> None:
 
     pages = 3 * 4 * 2  # three int32 candidate pages per direction pair
     report = [
-        kernel_entry("threshold_ccl_extract", "ccl_extract.cu",
-                     "ccl_kernel.py:572",
-                     qd2["threshold_ccl_extract"], b1_err, b1_ms, b1_plain_ms,
-                     b1_px * (1 + pages),
-                     b1_px * (THRESH_OPS + b1_rounds * ROUND_OPS
-                              + EXTRACT_OPS)),
-        kernel_entry("segment_stats", "segment_stats.cu",
-                     "segment_kernel.py:182",
-                     qd2["segment_stats"], b2_err, b2_ms, b2_plain_ms,
-                     b2_n * 12 + 2 * (2 * b2_n // 128) * 4,
-                     b2_n * SEGMENT_OPS),
+        dict(kernel_entry("threshold_ccl_extract", "ccl_extract.cu",
+                          "ccl_kernel.py:572",
+                          qd2["threshold_ccl_extract"], b1_err, b1_ms,
+                          b1_plain_ms, b1_px * (1 + pages),
+                          b1_px * (THRESH_OPS + b1_rounds * ROUND_OPS
+                                   + EXTRACT_OPS)),
+             device_ms=b1_dev_ms, launches_per_call=b1_dev_launches),
+        dict(kernel_entry("segment_stats", "segment_stats.cu",
+                          "segment_kernel.py:182",
+                          qd2["segment_stats"], b2_err, b2_ms, b2_plain_ms,
+                          b2_n * 12 + 2 * (2 * b2_n // 128) * 4,
+                          b2_n * SEGMENT_OPS),
+             device_ms=b2_dev_ms, launches_per_call=b2_dev_launches),
         kernel_entry("threshold_ccl", "threshold_ccl.cu", "ccl_kernel.py:770",
                      qd1["threshold_ccl"], b3_err, b3_ms, b3_plain_ms,
                      b3_px * (1 + 1 + 4),

@@ -21,6 +21,7 @@ from chalkydri_tpu.geometry.field_layout import parse_field_layout as jax_layout
 from chalkydri_tpu.geometry.tags import corners_world as jax_corners_world
 from chalkydri_tpu.solver.robot_pose import solve_robot_pose_batched
 from chalkydri_tpu_torch.detector import cluster as tc
+from chalkydri_tpu_torch.detector import families as tfam
 from chalkydri_tpu_torch.geometry import camera as tcam
 from chalkydri_tpu_torch.geometry import transforms as ttf
 from chalkydri_tpu_torch.solver.robot_pose import solve_robot_pose
@@ -50,6 +51,22 @@ def _candidates():
     tern = jax_threshold(jnp.asarray(np.stack(frames)))
     labels = jax_label(tern, iters=12)
     return jax.vmap(jc.extract_boundary_points)(tern, labels)
+
+
+@pytest.mark.parametrize("name", ["tag16h5", "tag25h9", "tag36h10",
+                                  "tag36h11"])
+def test_port_codebooks_equal_jax_tables(name):
+    """The port reads its own copies of the codebooks: codes, dim,
+    min_hamming and all four rotations equal the JAX package's."""
+    assert os.path.dirname(tfam._DATA_DIR) == os.path.dirname(
+        os.path.abspath(tfam.__file__))
+    got, want = tfam.load_family(name), jax_load_family(name)
+    assert (got.name, got.dim, got.nbits, got.ncodes, got.min_hamming) == (
+        want.name, want.dim, want.nbits, want.ncodes, want.min_hamming)
+    np.testing.assert_array_equal(got.codes, want.codes.astype(np.int64))
+    np.testing.assert_array_equal(got.codes_rot,
+                                  want.codes_rot.astype(np.int64))
+    np.testing.assert_array_equal(got.codes32, want.codes32.astype(np.int64))
 
 
 def test_top_indices_keep_lax_top_k_tie_order():
