@@ -1,8 +1,9 @@
-// Device code shared by the CCL kernels B1 (ccl_extract.cu), B3-B5
-// (threshold_ccl.cu) and B7 (extract_blocked.cu): the adaptive tile
-// threshold, the round-invariant connectivity bytes, the capped
-// label-propagation rounds and the boundary-candidate extraction of one
-// pixel. The stages run as launches on the caller's stream, with no host
+// Device code shared by the CCL kernels B1 (ccl_extract.cu) and B3-B5
+// (threshold_ccl.cu): the adaptive tile threshold, the round-invariant
+// connectivity bytes, the capped label-propagation rounds and the
+// boundary-candidate extraction of one pixel (whose rule B7,
+// extract_blocked.cu, applies to a tile staged in shared memory). The
+// stages run as launches on the caller's stream, with no host
 // synchronisation.
 //
 // The rounds (ccl::label) replace the loop of _ccl_from_val in
@@ -601,6 +602,61 @@ inline int threshold(const uint8_t* gray, int B, int H, int W, int min_diff,
 
 // Shared memory a block may ask for on sm_90 (227 KB).
 constexpr size_t kMaxSharedBytes = 232448;
+
+// A cluster kernel's record on one card: its attributes set, and for each
+// cluster size the most shared memory a CTA already checked to schedule.
+struct ClusterCheck {
+  bool attributes = false;
+  int checked_bytes[17] = {};
+};
+
+// Launches `kernel` on `grid` CTAs of `threads` threads, in clusters of C
+// (1-16) CTAs with `bytes` of dynamic shared memory each, on stream s. At
+// its first use on a card the kernel may ask for kMaxSharedBytes and for
+// clusters over the portable 8; the first use of a larger `bytes` at a C
+// asks cudaOccupancyMaxActiveClusters whether one such cluster can be
+// scheduled. `checks` is the kernel's record for each of 64 cards. Returns
+// cudaGetLastError() after the launch (0 on success), the occupancy
+// query's error, or -2 when the card cannot schedule such a cluster.
+template <typename... Params, typename... Args>
+inline int launch_cluster(void (*kernel)(Params...), int grid, int C,
+                          int threads, size_t bytes, cudaStream_t s,
+                          ClusterCheck* checks, Args... args) {
+  if (C < 1 || C > 16 || bytes > kMaxSharedBytes)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  ClusterCheck& check = checks[dev % 64];
+  if (!check.attributes) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)kMaxSharedBytes);
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    CCL_CHECK_LAUNCH();
+    check.attributes = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((int)bytes > check.checked_bytes[C]) {
+    int clusters = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (clusters < 1) return -2;
+    check.checked_bytes[C] = (int)bytes;
+  }
+  cudaLaunchKernelEx(&cfg, kernel, args...);
+  return (int)cudaGetLastError();
+}
 
 // Bytes of the column pass's strip of C columns.
 inline size_t strip_bytes(int H, int C) { return (size_t)H * C * 5; }

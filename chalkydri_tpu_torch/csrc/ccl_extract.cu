@@ -689,12 +689,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();  // the neighbors are done reading this band
 }
 
-// Per card: the cluster shapes (size, shared bytes) checked to schedule.
-struct ClusterCheck {
-  bool attributes = false;
-  int checked_bytes[17] = {};
-};
-ClusterCheck g_checks[64];
+ccl::ClusterCheck g_checks[64];  // the cluster kernel's, per card
 
 }  // namespace
 
@@ -722,42 +717,10 @@ extern "C" int chalkydri_ccl_extract_cluster(
       bytes > ccl::kMaxSharedBytes ||
       ((th + C - 1) / C) * tw > kMaxTilesPerThread * kThreads)
     return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  ClusterCheck& check = g_checks[dev % 64];
-  if (!check.attributes) {
-    cudaFuncSetAttribute(cluster_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)ccl::kMaxSharedBytes);
-    cudaFuncSetAttribute(cluster_kernel,
-                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    CCL_CHECK_LAUNCH();
-    check.attributes = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * C);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if ((int)bytes > check.checked_bytes[C]) {
-    int clusters = 0;
-    const cudaError_t e =
-        cudaOccupancyMaxActiveClusters(&clusters, cluster_kernel, &cfg);
-    if (e != cudaSuccess) return (int)e;
-    if (clusters < 1) return -2;
-    check.checked_bytes[C] = (int)bytes;
-  }
-  cudaLaunchKernelEx(&cfg, cluster_kernel, gray, H, W,
-                     ccl::kTile * ((th + C - 1) / C), iters, min_diff, black,
-                     white, payload, rounds);
-  return (int)cudaGetLastError();
+  return ccl::launch_cluster(cluster_kernel, B * C, C, kThreads, bytes,
+                             (cudaStream_t)stream, g_checks, gray, H, W,
+                             ccl::kTile * ((th + C - 1) / C), iters,
+                             min_diff, black, white, payload, rounds);
 }
 
 // The chain route: gray [B, H, W] u8 (H, W multiples of 4, at most 4096)

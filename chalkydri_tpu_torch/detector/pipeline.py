@@ -66,6 +66,22 @@ class Detections(NamedTuple):
     valid: torch.Tensor  # [B, MAX_DETECTIONS] bool
     dropped_points: torch.Tensor  # [B] int32, candidates lost to compaction
 
+    def count(self) -> torch.Tensor:  # shadows tuple.count on purpose
+        """Valid detections per frame, [B]."""
+        return self.valid.sum(-1)
+
+    def filtered_by_decision_margin(self, threshold: float):
+        """Yield (frame, id, corners [4, 2], margin) for each valid
+        detection whose decision margin is above ``threshold``, frame by
+        frame and slot by slot. Pulls the fields to the host once."""
+        ids, corners, margins, valid = (
+            x.cpu().numpy() for x in (self.ids, self.corners,
+                                      self.decision_margins, self.valid))
+        for b in range(ids.shape[0]):
+            for i in range(ids.shape[1]):
+                if valid[b, i] and margins[b, i] > threshold:
+                    yield b, int(ids[b, i]), corners[b, i], float(margins[b, i])
+
 
 def make_post_cluster(decode, refine: bool = True, quad_decimate: int = 2,
                       max_detections: int = MAX_DETECTIONS,

@@ -46,6 +46,10 @@ _SIGNATURES = {
     # gray, B, H, W, wp, min_diff, tile_min, tile_max, tern, parent,
     # labels, stream
     "chalkydri_threshold_ccl_exact": [_P, _I, _I, _I, _I, _I] + [_P] * 6,
+    # tern, B, H, W, wp, C, labels, stream
+    "chalkydri_label_components_cluster": [_P] + [_I] * 5 + [_P] * 2,
+    # tern, labels, B, H, W, C, out, stream
+    "chalkydri_propagate_components_cluster": [_P, _P] + [_I] * 4 + [_P] * 2,
     # tern, B, H, W, wp, parent, labels, stream
     "chalkydri_label_components_exact": [_P, _I, _I, _I, _I] + [_P] * 3,
     # tern, labels, B, H, W, parent, rootval, out, stream
@@ -158,3 +162,14 @@ def check(rc: int, name: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` code from a launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def check_cluster(rc: int, name: str, c: int, nbytes: int) -> None:
+    """``check`` for a cluster launch (``ccl_common.cuh::launch_cluster``),
+    whose code -2 says the card cannot schedule one cluster of ``c`` CTAs
+    with ``nbytes`` of shared memory each."""
+    if rc == -2:
+        raise RuntimeError(
+            f"{name}: this card cannot schedule a cluster of {c} CTAs with "
+            f"{nbytes} bytes of shared memory each")
+    check(rc, name)

@@ -132,12 +132,8 @@ def threshold_ccl_extract_rounds(gray: torch.Tensor, iters: int = 12,
                         gray.data_ptr(), b, h, w, c, iters, min_diff,
                         black.data_ptr(), white.data_ptr(),
                         payload.data_ptr(), rounds.data_ptr())
-        if rc == -2:
-            raise RuntimeError(
-                f"threshold_ccl_extract: this card cannot schedule a cluster "
-                f"of {c} CTAs with {cluster_bytes(h, w, c)} bytes of shared "
-                f"memory each")
-        build.check(rc, "threshold_ccl_extract")
+        build.check_cluster(rc, "threshold_ccl_extract", c,
+                            cluster_bytes(h, w, c))
     else:
         tile_min = build.empty((b, h // 4, w // 4), torch.uint8, gray)
         tile_max = build.empty((b, h // 4, w // 4), torch.uint8, gray)

@@ -10,7 +10,9 @@ and the block's frame row in the payload. Here that block is the caller's
 band: the row-banded detector extracts each band with its neighbours' halo
 rows. ``extract_candidates_blocked`` is the whole-frame entry, the band
 entry with no halo. It has no ``block_rows``: the TPU blocks rows to fit
-VMEM, and here they would change nothing that is returned.
+VMEM, and here they would change nothing that is returned. On the card a
+CTA takes a tile of core rows and stages its stencils' rows in shared
+memory; the three pages are views of one allocation.
 
 Output, bit for bit the same on either route: (black, white, payload),
 each [B, 2*Hc*W] int32 for the Hc core rows, in the direction-major order
@@ -69,9 +71,8 @@ def extract_candidates_band(tern_ext: torch.Tensor, labels_ext: torch.Tensor,
     hc = _core_rows(hext, halo_top, halo_bottom)
     if not 0 <= y_offset <= 4096 - hc:  # y2 = 2 * row + dy has 13 bits
         raise ValueError(f"extract_candidates_band: y_offset {y_offset}")
-    black = build.empty((b, 2 * hc * w), torch.int32, tern_ext)
-    white = build.empty((b, 2 * hc * w), torch.int32, tern_ext)
-    payload = build.empty((b, 2 * hc * w), torch.int32, tern_ext)
+    pages = build.empty((3, b, 2 * hc * w), torch.int32, tern_ext)
+    black, white, payload = pages.unbind(0)
     build.launch("chalkydri_extract_band", tern_ext, tern_ext.data_ptr(),
                  labels_ext.data_ptr(), b, hext, w, halo_top, halo_bottom,
                  y_offset, black.data_ptr(), white.data_ptr(),

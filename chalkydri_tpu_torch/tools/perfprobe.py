@@ -23,7 +23,9 @@ and inside B1 at [4, 400, 640] and at the deployed rig's [2, 652, 800]
 (one cluster launch each), with the launches that ran and the
 CUDA-event time of the whole call (the difference is host and launch
 time); then a ``B2 ...`` line of the same form for B2 on the bench
-scene's sorted candidates, [4, 65536].
+scene's sorted candidates, [4, 65536]; then a line of the same form for
+each of B6's two entries and B7 at the full-resolution band shapes of
+the row-banded step ([2, 328, 1600], B7 with its halo rows [2, 331, 1600]).
 
 To set two trees side by side in one call, run this file as a script
 with ``PYTHONPATH`` at the other tree's root: it then measures that
@@ -169,8 +171,11 @@ def device_times(fn, calls: int = 10) -> dict[str, dict]:
             # "void ccl::(anonymous namespace)::name<16>(int*, ..."
             m = re.search(r"(\w+(<[^>]*>)?)\(", e.key)
             key = m.group(1) if m else e.key
-            kernels[key] = {"launches_per_call": e.count / calls,
-                            "us_per_call": us / calls}
+            # the profiler may split one kernel over several entries
+            k = kernels.setdefault(key, {"launches_per_call": 0.0,
+                                         "us_per_call": 0.0})
+            k["launches_per_call"] += e.count / calls
+            k["us_per_call"] += us / calls
     return kernels
 
 
@@ -236,6 +241,75 @@ def ccl_round_times(frames, deployed, calls: int = 10) -> dict[str, dict]:
     return out
 
 
+def band_kernel_inputs(frames, n_bands: int = 4):
+    """The inputs kernels B6 and B7 get at the band that holds the tags'
+    upper halves (band ``n_bands // 2 - 1``) when the row-banded step cuts
+    ``frames`` into ``n_bands`` bands at full resolution: (tern band
+    [B, hl, W], its globally offset labels after one seam exchange, the
+    band extended by one row above and two below [B, hl + 3, W] in tern
+    and in whole-frame labels, the band's first frame row)."""
+    import torch.nn.functional as F
+
+    from chalkydri_tpu_torch.detector.segment import INVALID, padded_width
+    from chalkydri_tpu_torch.detector.threshold import adaptive_threshold
+    from chalkydri_tpu_torch.ops.propagate import label_components_blocked
+    from chalkydri_tpu_torch.parallel.mesh import (
+        gather_frames,
+        make_mesh,
+        place_frames,
+    )
+    from chalkydri_tpu_torch.parallel.sharded_stages import (
+        _ici_seam_min,
+        _with_seam_rows,
+        label_components_block_kernel,
+    )
+
+    tern = adaptive_threshold(frames)
+    bands = place_frames(make_mesh([frames.device] * n_bands, space=n_bands),
+                         tern, spatial=True)[0]
+    hl, w = bands[0].shape[1:]
+    j = n_bands // 2 - 1
+    labels = [label_components_blocked(t) for t in bands]
+    labels = [torch.where(lab == INVALID, lab, lab + i * hl * padded_width(w))
+              for i, lab in enumerate(labels)]
+    merged = _with_seam_rows(labels[j], *_ici_seam_min(labels, bands)[j])
+    whole = gather_frames([label_components_block_kernel(bands)])
+    rows = slice(j * hl, (j + 1) * hl + 3)
+    t_ext = F.pad(tern, (0, 0, 1, 2), value=127)[:, rows].contiguous()
+    l_ext = F.pad(whole, (0, 0, 1, 2), value=INVALID)[:, rows].contiguous()
+    return bands[j], merged, t_ext, l_ext, j * hl
+
+
+def band_kernel_times(spatial, calls: int = 10) -> dict[str, dict]:
+    """Device us of every CUDA kernel inside one call of B6 (both entries)
+    and B7 at the full-resolution band shapes of the row-banded step on
+    the ``spatial`` scene (``band_kernel_inputs``), with its launches a
+    call, and the whole call's CUDA-event us."""
+    from chalkydri_tpu_torch.ops.extract_blocked import extract_candidates_band
+    from chalkydri_tpu_torch.ops.propagate import (
+        label_components_blocked,
+        propagate_components_blocked,
+    )
+
+    t, m, t_ext, l_ext, y0 = band_kernel_inputs(spatial)
+    cases = {f"B6 label_components_blocked {list(t.shape)}":
+             lambda: label_components_blocked(t),
+             f"B6 propagate_components_blocked {list(t.shape)}":
+             lambda: propagate_components_blocked(t, m),
+             f"B7 extract_candidates_band {list(t_ext.shape)}":
+             lambda: extract_candidates_band(t_ext, l_ext, 1, 2, y0)}
+    out = {}
+    for name, fn in cases.items():
+        kernels = device_times(fn, calls)
+        out[name] = {"kernels": kernels,
+                     "kernel_us_per_call": sum(k["us_per_call"]
+                                               for k in kernels.values()),
+                     "launches_per_call": sum(k["launches_per_call"]
+                                              for k in kernels.values()),
+                     "event_us_per_call": event_us(fn, calls)}
+    return out
+
+
 def device_share(step, frames, gyro, steps: int = 3) -> dict[str, float]:
     """Wall ms, device kernel ms and launches per step under the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -284,21 +358,24 @@ def main() -> None:
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda")
     report = {"card": card}
-    rounds = ccl_round_times(load_scene("bench", dev)[3],
-                             load_scene("deployed", dev)[3])
-    for name, r in rounds.items():
+    rounds = ccl_round_times(
+        load_scene("bench", dev)[3], load_scene("deployed", dev)[3])
+    band = band_kernel_times(load_scene("spatial", dev)[3])
+    for name, r in {**rounds, **band}.items():
         parts = ", ".join(f"{k} {v['launches_per_call']:.0f} x "
                           f"{v['us_per_call'] / v['launches_per_call']:.2f}"
                           for k, v in r["kernels"].items())
-        print(f"{'' if name.startswith('B2') else 'ccl rounds '}{name}: "
+        print(f"{'ccl rounds ' if name.startswith(('B1', 'B4')) else ''}"
+              f"{name}: "
               f"{parts} us; kernels "
               f"{r['kernel_us_per_call']:.1f} us, whole call "
               f"{r['event_us_per_call']:.1f} us [{card}]", flush=True)
     report["ccl rounds"] = rounds
-    for path, scene, qd in (("qd2 bench", "bench", 2), ("qd1 bench", "bench", 1),
-                            ("qd1 deployed", "deployed", 1),
-                            ("spatial qd2", "spatial", 2),
-                            ("spatial qd1", "spatial", 1)):
+    report["band kernels"] = band
+    paths = (("qd2 bench", "bench", 2), ("qd1 bench", "bench", 1),
+             ("qd1 deployed", "deployed", 1), ("spatial qd2", "spatial", 2),
+             ("spatial qd1", "spatial", 1))
+    for path, scene, qd in paths:
         layout, params, rc, frames, poses = load_scene(scene, dev)
         gyro = torch.tensor([p[2] for p in poses], dtype=torch.float32,
                             device=dev)

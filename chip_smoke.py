@@ -32,7 +32,13 @@
    [4, 800, 1280], B5 at [2, 1304, 1600], B6 (both entries) and B7
    (whole frame and band entry) at the row bands of the spatial scene,
    2 x 1312x1600 in four bands of 328 rows (and of 164x800 after
-   decimation), plus a snake that crosses every seam of four bands;
+   decimation), with their device time and device launches a call, plus
+   a snake that crosses every seam of four bands; and off those shapes
+   (bands of 1-3 rows and of odd height, CTAs of B6's cluster left
+   without rows, widths that are no multiple of 4 or 16, snakes through
+   every CTA, the last band of the cluster route and one row over it,
+   which takes B6's global-memory route; B7 with halos of 0-2 rows, an
+   input off 16-byte alignment, ``y_offset`` at the 13-bit limit);
 5. drives four paths through the entry points (``build_rig_from_config``
    -> ``make_vision_pipeline`` / ``make_sharded_vision_pipeline``), each
    with the launch counts set to 0 just before it and read just after:
@@ -40,9 +46,10 @@
    4 x 1280x800 (B3, B4, B2), ``quad_decimate=1`` at 2 x 1600x1304 (B5,
    B2), and the row-banded step (``spatial=True``) at 2 x 1600x1312 over a
    grid of four bands on the one card, at ``quad_decimate=2`` and ``1``
-   (B6, B7, B2). Each checks the ids and each frame's pose against its own
-   truth and that every kernel of the path launched, compares the step
-   with the same step run on the plain twins only, and times both; the
+   (B6 on its cluster route only, B7, B2). Each checks the ids and each
+   frame's pose against its own truth and that every kernel of the path
+   launched, compares the step with the same step run on the plain twins
+   only, and times both; the
    row-banded step is also held against the single-card step on the same
    frames;
 6. checks the options: the bench scene as YUYV gives the GREY step's ids
@@ -397,7 +404,9 @@ def band_phases(dev, card, frames_sp):
     """B6 and B7 against their plain twins on the spatial scene's row bands
     (full resolution and decimated), on a whole frame, and on a snake that
     crosses every seam of four bands. Times them at the full-resolution
-    band shape. Returns {kernel: (err, ms, plain_ms, bytes, ops)}."""
+    band shape, with their device time and device launches a call.
+    Returns {kernel: (err, ms, plain_ms, bytes, ops, device_ms,
+    device launches a call)}."""
     import torch
 
     from chalkydri_tpu_torch.detector.cluster import extract_boundary_points
@@ -501,9 +510,11 @@ def band_phases(dev, card, frames_sp):
         }
         for name, (kernel, plain, nbytes, ops) in pairs.items():
             err = max_abs_err(_as_tuple(kernel()), _as_tuple(plain()))
-            ms, plain_ms = time_pair(f"{name}", t_ext.shape if "band" in name
-                                     else t.shape, card, kernel, plain)
-            out[name] = (err, ms, plain_ms, nbytes, ops)
+            ms, plain_ms, dev_ms, dev_launches = time_kernel(
+                f"{'B7' if 'band' in name else 'B6'} {name}",
+                t_ext.shape if "band" in name else t.shape, card, kernel,
+                plain)
+            out[name] = (err, ms, plain_ms, nbytes, ops, dev_ms, dev_launches)
 
     # a snake through every seam of four 16-row bands
     serp = torch.from_numpy(serpentine(stripes=6)).to(dev)[None]
@@ -520,6 +531,102 @@ def band_phases(dev, card, frames_sp):
           "bit-identical to the twins' loop, the whole snake one label",
           flush=True)
     return out
+
+
+def band_edge_cases(dev) -> None:
+    """B6 (both entries) and B7 against their twins where the main path's
+    bands do not reach: bands of 1-3 rows and of odd height, CTAs left
+    without rows, widths that are no multiple of 4 or of 16, snakes
+    through every CTA of a cluster, a band at the cluster budget and one
+    row over it (the global-memory route, counted there); for B7 also
+    no halo, halos of 0-2 rows, an input off 16-byte alignment and
+    ``y_offset`` at the 13-bit limit. Labels handed to the propagate entry
+    and to B7 are random (``INVALID`` on skip pixels)."""
+    import torch
+
+    from chalkydri_tpu_torch.detector.segment import INVALID
+    from chalkydri_tpu_torch.ops.extract_blocked import (
+        extract_candidates_band,
+        extract_candidates_band_plain,
+    )
+    from chalkydri_tpu_torch.ops.propagate import (
+        band_cluster_size,
+        label_components_blocked,
+        label_components_blocked_plain,
+        propagate_components_blocked,
+        propagate_components_blocked_plain,
+    )
+    from chalkydri_tpu_torch.tools.scenes import blob_tern
+
+    gen = torch.Generator(dev).manual_seed(5)
+
+    def random_labels(tern):
+        lab = torch.randint(0, 1 << 30, tern.shape, generator=gen,
+                            device=dev, dtype=torch.int32)
+        return torch.where(tern == 127, INVALID, lab)
+
+    # the most rows of 1600 px the cluster route takes
+    fit = max(h for h in range(1, 1024) if band_cluster_size(1, h, 1600))
+    terns = [torch.from_numpy(blob_tern(s, i)).to(dev) for i, s in enumerate(
+        ((1, 1, 1600), (2, 2, 800), (1, 3, 37), (2, 17, 800), (1, 50, 1600),
+         (2, 41, 36), (3, 329, 1601), (1, fit, 1600), (1, fit + 1, 1600)))]
+    terns += [torch.from_numpy(serpentine(64, 128, 20)[None]).to(dev),
+              torch.from_numpy(serpentine(328, 1600, 200)[None]).to(dev)]
+    routes = []
+    for tern in terns:
+        shape = tuple(tern.shape)
+        c = band_cluster_size(*shape)
+        before = (label_components_blocked.global_launches,
+                  propagate_components_blocked.global_launches)
+        require_equal(f"B6 label {shape}", ("labels",),
+                      (label_components_blocked(tern),),
+                      (label_components_blocked_plain(tern),))
+        lab = random_labels(tern)
+        require_equal(f"B6 propagate {shape}", ("labels",),
+                      (propagate_components_blocked(tern, lab),),
+                      (propagate_components_blocked_plain(tern, lab),))
+        after = (label_components_blocked.global_launches,
+                 propagate_components_blocked.global_launches)
+        if after != tuple(n + (c is None) for n in before):
+            raise AssertionError(f"B6 {shape}: route {c}, but global-route "
+                                 f"launches went {before} -> {after}")
+        routes.append(f"{list(shape)}: {c or 'global'}")
+    if band_cluster_size(1, fit, 1600) != 16 or band_cluster_size(
+            1, fit + 1, 1600) is not None:
+        raise AssertionError(f"B6: {fit} rows of 1600 px are not the "
+                             f"cluster route's last")
+    snake = terns[-1]
+    if len(torch.unique(label_components_blocked(snake)[snake == 255])) != 1:
+        raise AssertionError("B6 serpentine: the snake has more than 1 label")
+    print(f"B6 edge cases bit-identical (both entries; shape: CTAs a "
+          f"cluster): {', '.join(routes)}; the 200-stripe snake one label",
+          flush=True)
+
+    cases = []
+    for i, (shape, top, bottom, y_off) in enumerate((
+            ((2, 331, 1600), 1, 2, 984), ((1, 20, 37), 1, 2, 5),
+            ((2, 13, 201), 0, 0, 0), ((1, 11, 36), 1, 1, 7),
+            ((1, 9, 130), 0, 2, 3), ((1, 11, 800), 1, 2, 4096 - 8),
+            ((2, 4, 1600), 1, 2, 1), ((1, 260, 800), 2, 0, 17))):
+        tern = torch.from_numpy(blob_tern(shape, 20 + i)).to(dev)
+        lab = random_labels(tern)
+        got = extract_candidates_band(tern, lab, top, bottom, y_off)
+        require_equal(f"B7 {shape} halos {top}/{bottom}",
+                      ("black", "white", "payload"), got,
+                      extract_candidates_band_plain(tern, lab, top, bottom,
+                                                    y_off))
+        cases.append(f"{list(shape)} halos {top}/{bottom} y_offset {y_off}")
+    # an input 1 byte off 16-byte alignment (the kernel stages it bytewise)
+    shape = (1, 19, 800)
+    store = torch.empty(19 * 800 + 1, dtype=torch.uint8, device=dev)
+    tern = store[1:].view(shape)
+    tern.copy_(torch.from_numpy(blob_tern(shape, 40)))
+    lab = random_labels(tern)
+    require_equal("B7 unaligned tern", ("black", "white", "payload"),
+                  extract_candidates_band(tern, lab, 1, 2, 40),
+                  extract_candidates_band_plain(tern, lab, 1, 2, 40))
+    print(f"B7 edge cases bit-identical: {'; '.join(cases)}; "
+          f"{list(shape)} 1 byte off alignment", flush=True)
 
 
 def _as_tuple(x):
@@ -883,8 +990,9 @@ def main() -> None:
     print("B5 serpentine: bit-identical, the whole snake one label",
           flush=True)
 
-    # B6 and B7 at the spatial path's band shapes.
+    # B6 and B7 at the spatial path's band shapes, and off them.
     band = band_phases(dev, card, sp_frames)
+    band_edge_cases(dev)
 
     # -- the paths through the entry points, kernels counted --------------
     counters = {"threshold_ccl_extract": threshold_ccl_extract,
@@ -916,6 +1024,8 @@ def main() -> None:
     # The row-banded step: four bands of the one card, kernel CCL.
     mesh = make_mesh([dev] * BANDS, space=BANDS)
     spatial = {}
+    label_components_blocked.global_launches = 0
+    propagate_components_blocked.global_launches = 0
     for qd in (2, 1):
         dk = {"quad_decimate": qd, "ccl_impl": "pallas"}
         sp_step, sp_place = make_sharded_vision_pipeline(
@@ -930,6 +1040,10 @@ def main() -> None:
                        "extract_candidates_band", "segment_stats"), card,
             TIMED_STEPS["spatial"], against=single,
             ties_may_reorder=(qd == 2))
+        if (label_components_blocked.global_launches
+                or propagate_components_blocked.global_launches):
+            raise AssertionError(f"spatial deployed qd{qd} path: B6 took "
+                                 f"the global-memory route")
         label_components_block_kernel.host_reads = 0
         sp_step(*sp_place(sp_frames, torch.zeros(len(sp_poses), device=dev)))
         print(f"spatial deployed qd{qd} path: "
@@ -995,7 +1109,9 @@ def main() -> None:
                      dep["threshold_ccl_exact"], b5_err, b5_ms, b5_plain_ms,
                      b5_px * (1 + 1 + 4),
                      b5_px * (THRESH_OPS + UNION_FIND_OPS)),
-        *(kernel_entry(name, source, replaces, spatial[1][name], *band[name])
+        *(dict(kernel_entry(name, source, replaces, spatial[1][name],
+                            *band[name][:5]),
+               device_ms=band[name][5], launches_per_call=band[name][6])
           for name, source, replaces in (
               ("label_components_blocked", "propagate.cu",
                "ccl_kernel.py:1244"),
