@@ -16,6 +16,8 @@
 // linking the larger root under the smaller with atomicMin, so every root
 // is its component's minimum frame-flat index whatever order the unions
 // run in. That is what makes the result bit-identical to the plain twin.
+// The union-find's pieces (find_halving, unite, links_up, the warps' union
+// queues) are union_find.cuh's, shared with B5.
 //
 //   label      the component's raster-first pixel, as its padded-flat
 //              index ry * wp + rx (kInvalid on skip pixels);
@@ -47,23 +49,24 @@
 //      neighbour is in its up neighbour's run has nothing to add), linking
 //      the larger root under the smaller with shared-memory atomicMin.
 //      They are rare and scattered, so each warp queues them and runs them
-//      32 at a time, one a lane. Then each CTA flattens its own trees
+//      32 at a time, one a lane (ccl::UnionQueue). Then each CTA flattens its own trees
 //      with path halving and marks its non-skip local roots: no union
 //      runs in the cluster until the barrier below (the CTAs' unions so
 //      far touch their own shared memory only), a halved entry is still
 //      an ancestor, and the halving lowers entries with atomicMin, so a
 //      walk that read an entry before its own thread stored the root
-//      there cannot put an ancestor back over it (Parents::find_halving);
+//      there cannot put an ancestor back over it (ccl::find_halving);
 //   3. cluster.sync(); unions across each CTA's top row and the row above
 //      it: the roots may live in any CTA of the cluster, so the walks read
 //      and the atomicMin links write their shared memory through DSMEM
 //      (cluster.map_shared_rank). A stale entry read during the unions is
 //      still an ancestor (entries only decrease and stay <= their index),
 //      and unite() retries with the value the atomic returns, so no link
-//      is lost; nothing is flattened while unions run;
-//   4. cluster.sync(); each local root walks to its root over the cluster
-//      and keeps it (a non-root entry still holds its local root: only
-//      roots are ever linked); propagate: a root's slot of `out` is set to
+//      is lost. The unions start from the two pixels' local roots, so
+//      their halving lowers only local roots' entries: every other pixel's
+//      entry still names its local root, in its own CTA;
+//   4. cluster.sync(); each local root walks to its root over the cluster,
+//      halving, and keeps it; propagate: a root's slot of `out` is set to
 //      kInvalid. cluster.sync(): no CTA reads another's entries again;
 //   5. label: each local root's entry becomes its root's padded-flat index
 //      ry * wp + rx, then every pixel takes its local root's, with 16-byte
@@ -82,10 +85,10 @@
 // them.
 //
 // The large-frame route (over SHARED_BYTES a CTA at C = 16; only direct
-// callers send such frames): the global-memory union-find of
-// union_find.cuh, shared with B5: three launches (label) and five
-// (propagate: union-find, fill, atomicMin fold, root walk), with the
-// parents and the fold's values in device scratch.
+// callers send such frames): the union-find with its parents in a device
+// page (ccl::GlobalPage): three launches (label: init, merge, root walk)
+// and five (propagate: init, merge, fill, atomicMin fold, root walk), with
+// the parents and the fold's values in device scratch.
 //
 // Bound at a [2, 328, 1600] band: 1 B/px of tern and (propagate) 4 B/px of
 // labels in, 4 B/px out: 5.2 and 9.4 MB, 1.6 and 2.8 us at 3.35 TB/s. The
@@ -109,6 +112,66 @@ namespace {
 using ccl::kInvalid;
 
 // ---- the large-frame route ------------------------------------------------
+// The union-find with its parents in a device page: every non-skip pixel
+// unions with its connected backward neighbors, then each pixel walks to
+// its root. Walks and unions halve the paths they pass.
+
+__global__ void init_parent_kernel(int B, int H, int W,
+                                   int32_t* __restrict__ parent) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * H * W) return;
+  parent[i] = i % (H * W);
+}
+
+// Unions over the backward neighbors: left, and the row above by
+// ccl::links_up.
+__global__ void merge_kernel(const uint8_t* __restrict__ tern, int B, int H,
+                             int W, int32_t* parent) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * H * W) return;
+  const int hw = H * W;
+  const int b = i / hw, p = i % hw;
+  const int x = p % W;
+  const uint8_t* f = tern + (size_t)b * hw;
+  const ccl::GlobalPage pg{parent + (size_t)b * hw};
+  const int v = f[p];
+  if (v == 127) return;
+  if (x > 0 && f[p - 1] == v) ccl::unite(pg, p, p - 1);
+  if (p < W) return;
+  const unsigned links = ccl::links_up(f + p, W, x, W);
+  for (int j = 0; j < 3; ++j)
+    if (links >> j & 1) ccl::unite(pg, p, p - W - 1 + j);
+}
+
+// tern [B, H, W] u8 -> parent [B, H, W] int32 with every component's
+// pixels under its minimum-index root. Returns the launch error code.
+int union_find(const uint8_t* tern, int B, int H, int W, int32_t* parent,
+               cudaStream_t s) {
+  const int grid = ccl::blocks_for(B * H * W);
+  init_parent_kernel<<<grid, ccl::kThreads, 0, s>>>(B, H, W, parent);
+  CCL_CHECK_LAUNCH();
+  merge_kernel<<<grid, ccl::kThreads, 0, s>>>(tern, B, H, W, parent);
+  CCL_CHECK_LAUNCH();
+  return 0;
+}
+
+// labels[p] = the padded-flat index (ry * wp + rx) of p's root, kInvalid on
+// skip pixels.
+__global__ void root_label_kernel(const uint8_t* __restrict__ tern,
+                                  int32_t* parent, int B, int H, int W,
+                                  int wp, int32_t* __restrict__ labels) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * H * W) return;
+  const int hw = H * W;
+  const int b = i / hw, p = i % hw;
+  if (tern[i] == 127) {
+    labels[i] = kInvalid;
+    return;
+  }
+  const int r =
+      ccl::find_halving(ccl::GlobalPage{parent + (size_t)b * hw}, p);
+  labels[i] = (r / W) * wp + r % W;
+}
 
 __global__ void fill_kernel(int n, int32_t value, int32_t* __restrict__ dst) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -117,7 +180,7 @@ __global__ void fill_kernel(int n, int32_t value, int32_t* __restrict__ dst) {
 
 // rootval[root(p)] = min over the component of labels[p].
 __global__ void root_min_kernel(const uint8_t* __restrict__ tern,
-                                const int32_t* __restrict__ parent,
+                                int32_t* parent,
                                 const int32_t* __restrict__ labels, int B,
                                 int H, int W, int32_t* rootval) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -125,12 +188,13 @@ __global__ void root_min_kernel(const uint8_t* __restrict__ tern,
   if (tern[i] == 127) return;
   const int hw = H * W;
   const int b = i / hw, p = i % hw;
-  const int r = ccl::find_root(parent + (size_t)b * hw, p);
+  const int r =
+      ccl::find_halving(ccl::GlobalPage{parent + (size_t)b * hw}, p);
   atomicMin(rootval + (size_t)b * hw + r, labels[i]);
 }
 
 __global__ void root_value_kernel(const uint8_t* __restrict__ tern,
-                                  const int32_t* __restrict__ parent,
+                                  int32_t* parent,
                                   const int32_t* __restrict__ rootval, int B,
                                   int H, int W, int32_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -141,7 +205,9 @@ __global__ void root_value_kernel(const uint8_t* __restrict__ tern,
   }
   const int hw = H * W;
   const int b = i / hw, p = i % hw;
-  out[i] = rootval[(size_t)b * hw + ccl::find_root(parent + (size_t)b * hw, p)];
+  out[i] = rootval[(size_t)b * hw +
+                   ccl::find_halving(ccl::GlobalPage{parent + (size_t)b * hw},
+                                     p)];
 }
 
 // ---- the cluster route ----------------------------------------------------
@@ -150,7 +216,6 @@ constexpr int kThreads = 1024;  // a CTA
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 16;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kQueue = 64;  // a warp's queued unions
 
 // Shared memory of a CTA that holds R rows of W pixels (the wrapper's
 // ops/propagate.py::band_cluster_bytes computes the same): the parent
@@ -160,7 +225,7 @@ constexpr int kQueue = 64;  // a warp's queued unions
 // of the rows and of the row above.
 __host__ __device__ inline size_t cluster_ints(int R, int W) {
   const size_t n = (size_t)R * W;
-  return n + 3 * ((n + 31) / 32) + kWarps * (1 + 2 * kQueue);
+  return n + 3 * ((n + 31) / 32) + kWarps * (1 + 2 * ccl::kUnionQueue);
 }
 
 __host__ __device__ inline size_t cluster_bytes(int R, int W) {
@@ -188,104 +253,20 @@ struct Cols {
 
 // The frame's parents, spread over the cluster: CTA k holds the entries of
 // frame-flat indices [k * per_cta, (k + 1) * per_cta) in `par`, at the
-// same offset of every CTA's shared memory.
-struct Parents {
+// same offset of every CTA's shared memory, reached through DSMEM
+// (cluster.map_shared_rank); volatile reads.
+struct ClusterPage {
   int32_t* par;  // this CTA's entries
   int per_cta;   // R * W
-  int base;      // this CTA's first frame-flat index
-
-  // The entry of frame-flat index q, wherever it lives in the cluster.
-  __device__ __forceinline__ int32_t* slot(int q) const {
+  __device__ __forceinline__ int32_t* at(int q) const {
     const int rank = q / per_cta;
     return cg::this_cluster().map_shared_rank(par, rank) +
            (q - rank * per_cta);
   }
-
-  // Root of q across the cluster. Entries may be lowered by other threads
-  // while this walks (volatile reads); a stale entry is still an ancestor.
-  __device__ __forceinline__ int find(int q) const {
-    int v = *(volatile int32_t*)slot(q);
-    while (v != q) {
-      q = v;
-      v = *(volatile int32_t*)slot(q);
-    }
-    return q;
-  }
-
-  // Root of q, for q and its ancestors inside this CTA.
-  __device__ __forceinline__ int find_local(int q) const {
-    const volatile int32_t* p = par;
-    int v = p[q - base];
-    while (v != q) {
-      q = v;
-      v = p[q - base];
-    }
-    return q;
-  }
-
-  // Root of q inside this CTA, halving the path on the way (every entry
-  // read is pointed two steps up). Only while no union runs. Walks overlap
-  // with the stores of their entries' own threads: a walk may read q's
-  // parent and grandparent g, then q's thread store q's root, and only
-  // then the walk halve q. A plain store would put g, a mere ancestor,
-  // back over the root, and the later phases read a pixel's local root in
-  // one hop. Every ancestor has a smaller index than its descendants (a
-  // link puts the larger root under the smaller), so the halving lowers
-  // the entry with atomicMin: it never lifts an entry above the root.
-  __device__ __forceinline__ int find_halving(int q) const {
-    const volatile int32_t* p = par;
-    while (true) {
-      const int v = p[q - base];
-      if (v == q) return q;
-      const int g = p[v - base];
-      if (g == v) return v;
-      atomicMin(par + (q - base), g);
-      q = g;
-    }
-  }
-
-  // ccl::unite over the cluster (kLocal: inside this CTA): the larger root
-  // goes under the smaller; when the atomicMin finds that b stopped being
-  // a root, the set b had joined is united with a in turn.
-  template <bool kLocal>
-  __device__ __forceinline__ void unite(int a, int b) const {
-    while (true) {
-      a = kLocal ? find_local(a) : find(a);
-      b = kLocal ? find_local(b) : find(b);
-      if (a == b) return;
-      if (a > b) {
-        const int t = a;
-        a = b;
-        b = t;
-      }
-      const int old = atomicMin(kLocal ? par + (b - base) : slot(b), a);
-      if (old == b) return;
-      b = old;
-    }
+  __device__ __forceinline__ int load(int q) const {
+    return *(volatile int32_t*)at(q);
   }
 };
-
-// The unions pixel p (column x, not in the frame's first row; tl: its
-// staged tern byte, the row above W bytes before it) needs with the row
-// above, once a pair of row runs: the up link is implied when the left
-// pixel is in p's run and the up-left pixel in the up pixel's run (the
-// leftmost pixel of the overlap makes it); between whites an up-left link
-// is implied when the left pixel is white too, an up-right link when the
-// up pixel is (ccl::merge_kernel's rule). Returns bit k for the link to
-// p - W - 1 + k.
-__device__ __forceinline__ unsigned links_up(const uint8_t* tl, int W, int x) {
-  const int v = tl[0];
-  if (v == 127) return 0;
-  const bool left = x > 0 && tl[-1] == v;
-  const int up_left = x > 0 ? tl[-W - 1] : 127;
-  const bool up = tl[-W] == v;
-  unsigned links = up && !(left && up_left == v) ? 2u : 0u;
-  if (v == 255) {
-    if (!left && up_left == 255) links |= 1u;
-    if (!up && x < W - 1 && tl[-W + 1] == 255) links |= 4u;
-  }
-  return links;
-}
 
 // One frame per cluster of C = gridDim.x / B CTAs, kThreads each, R rows a
 // CTA (the last CTAs may hold fewer, or none); dynamic shared memory as
@@ -308,14 +289,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint32_t* skip = bits + chunks_max;            // a word a chunk
   int32_t* last = (int32_t*)(skip + chunks_max);  // a word a chunk
   int32_t* warp_max = last + chunks_max;         // [kWarps]
-  int32_t* queue = warp_max + kWarps;            // [kWarps][2][kQueue]
+  int32_t* queue = warp_max + kWarps;  // [kWarps][2][ccl::kUnionQueue]
   // the tern bytes: the row above, then the CTA's rows
   uint8_t* tsm = (uint8_t*)smem + (4 * cluster_ints(R, W) + 15) / 16 * 16;
   const int y0 = min(k * R, H), y1 = min(y0 + R, H);
   const int n = (y1 - y0) * W, chunks = (n + 31) / 32;
-  const Parents uf{par, per_cta, y0 * W};
+  const int base = y0 * W;
+  const ccl::SharedPage local{par, base};
+  const ClusterPage all{par, per_cta};
   const Cols cols{W, 1.0f / (float)W};
-  const int base = uf.base;
   const uint8_t* t = tsm + W;  // t[i]: pixel base + i
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t frame = (size_t)b * H * W;
@@ -408,55 +390,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   //    halved entry is still an ancestor, lowered only by atomicMin);
   //    bits[c] now marks the chunk's non-skip local roots
   {
-    int32_t* qa = queue + warp * 2 * kQueue;
-    int32_t* qb = qa + kQueue;
-    int count = 0;  // queued, the same in every lane
-    auto push = [&](bool has, int a, int b) {
-      const uint32_t m = __ballot_sync(kFull, has);
-      if (has) {
-        const int slot = count + __popc(m & ((1u << lane) - 1));
-        qa[slot] = a;
-        qb[slot] = b;
-      }
-      count += __popc(m);
-      if (count >= 32) {
-        __syncwarp();
-        uf.unite<true>(qa[lane], qb[lane]);
-        const int rest = count - 32;
-        int a2 = 0, b2 = 0;
-        if (lane < rest) {
-          a2 = qa[32 + lane];
-          b2 = qb[32 + lane];
-        }
-        __syncwarp();
-        if (lane < rest) {
-          qa[lane] = a2;
-          qb[lane] = b2;
-        }
-        __syncwarp();
-        count = rest;
-      }
-    };
+    ccl::UnionQueue<ccl::SharedPage> unions(
+        local, queue + warp * 2 * ccl::kUnionQueue);
     for (int c = W / 32 + warp; c < chunks; c += kWarps) {
       if (skip[c] == kFull) continue;
       const int i = 32 * c + lane, p = base + i;
       const unsigned links =
           i >= W && !(skip[c] >> lane & 1)
-              ? links_up(t + i, W, cols.of(p).x)
+              ? ccl::links_up(t + i, W, cols.of(p).x, W)
               : 0u;
-      push(links & 2u, p, p - W);
-      push(links & 1u, p, p - W - 1);
-      push(links & 4u, p, p - W + 1);
+      unions.push(links & 2u, p, p - W);
+      unions.push(links & 1u, p, p - W - 1);
+      unions.push(links & 4u, p, p - W + 1);
     }
-    __syncwarp();
-    if (lane < count) uf.unite<true>(qa[lane], qb[lane]);
+    unions.drain();
   }
   __syncthreads();
   for (int c = warp; c < chunks; c += kWarps) {
     bool root = false;
     if (skip[c] != kFull && !(skip[c] >> lane & 1)) {
       const int i = 32 * c + lane;
-      const int r = uf.find_halving(base + i);
+      const int r = ccl::find_halving(local, base + i);
       par[i] = r;  // no halving lowers it further: r is the least ancestor
       root = r == base + i;
     }
@@ -464,22 +418,26 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) bits[c] = m;
   }
   cluster.sync();  // every CTA's own unions are done
-  // 3. unions across the CTA's top row and the row above it
+  // 3. unions across the CTA's top row and the row above it, started from
+  //    the two pixels' local roots: the walks then halve only local
+  //    roots' entries, and every other pixel's still names its local root
   if (n > 0 && y0 > 0) {
     for (int x = threadIdx.x; x < W; x += kThreads) {
-      const unsigned links = links_up(t + x, W, x);
+      const unsigned links = ccl::links_up(t + x, W, x, W);
       for (int j = 0; j < 3; ++j)
-        if (links >> j & 1) uf.unite<false>(base + x, base + x - W - 1 + j);
+        if (links >> j & 1)
+          ccl::unite(all, local.load(base + x),
+                     all.load(base + x - W - 1 + j));
     }
   }
   cluster.sync();  // the last union is done
-  // 4. the local roots onto their roots (a non-root entry still holds its
-  //    local root: only roots are linked); a root's slot starts the fold
+  // 4. the local roots onto their roots (halving the paths over the
+  //    cluster); a root's slot starts the fold
   for (int c = warp; c < chunks; c += kWarps) {
     if (bits[c] >> lane & 1) {
       const int i = 32 * c + lane, p = base + i;
       const int v = par[i];
-      const int r = v == p ? p : uf.find(v);
+      const int r = v == p ? p : ccl::find_halving(all, v);
       par[i] = r;
       if (kPropagate && r == p) o[p] = kInvalid;
     }
@@ -610,8 +568,13 @@ extern "C" int chalkydri_label_components_exact(const uint8_t* tern, int B,
                                                 int32_t* parent,
                                                 int32_t* labels,
                                                 void* stream) {
-  return ccl::label_exact(tern, B, H, W, wp, parent, labels,
-                          (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int rc = union_find(tern, B, H, W, parent, s);
+  if (rc) return rc;
+  root_label_kernel<<<ccl::blocks_for(B * H * W), ccl::kThreads, 0, s>>>(
+      tern, parent, B, H, W, wp, labels);
+  CCL_CHECK_LAUNCH();
+  return 0;
 }
 
 // The large-frame route, propagate entry: as the cluster route, with
@@ -622,7 +585,7 @@ extern "C" int chalkydri_propagate_components(const uint8_t* tern,
                                               int32_t* rootval, int32_t* out,
                                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int rc = ccl::union_find(tern, B, H, W, parent, s);
+  const int rc = union_find(tern, B, H, W, parent, s);
   if (rc) return rc;
   const int n = B * H * W;
   const int grid = ccl::blocks_for(n);

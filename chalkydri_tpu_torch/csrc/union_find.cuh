@@ -1,19 +1,21 @@
-// Lock-free union-find over the pixels of a batch of ternary frames, shared
-// by kernel B5 (threshold_ccl.cu) and kernel B6 (propagate.cu): the
+// The lock-free union-find that kernels B5 (threshold_ccl.cu) and B6
+// (propagate.cu) build their labels on, after Playne and Hawick 2018: the
 // component structure at the GLOBAL fixed point of the label propagation
-// (4-connectivity between equal values, diagonals between whites only),
-// after Playne and Hawick 2018.
+// (4-connectivity between equal values, diagonals between whites only).
 //
-//   1. parent[p] = p, the flat index within the frame;
-//   2. each non-skip pixel unions with its connected backward neighbors
-//      (left and up for every value, up-left and up-right between two
-//      whites), linking the larger root under the smaller with atomicMin,
-//      so every root is its component's minimum index;
-//   3. a root walk per pixel then reads whatever the caller keeps at the
-//      root: its padded-flat index (root_label_kernel) or a value reduced
-//      over the component (propagate.cu).
-// A fixed number of launches, no host synchronisation, exact on any
-// topology.
+// Every link puts the larger root under the smaller with atomicMin, so
+// every root is its component's minimum index whatever order the unions
+// run in, and every ancestor has a smaller index than its descendants.
+// Entries only decrease and stay in their set. The pieces here:
+//   - the pages the entries live in (global memory, a CTA's shared memory;
+//     B6 adds the shared memory of a thread block cluster): how a walk
+//     reads an entry that other threads lower meanwhile, and where the
+//     atomics go;
+//   - find_halving and unite over any such page;
+//   - links_up, the links a pixel needs with the row above once a pair of
+//     row runs;
+//   - UnionQueue, a warp's queue of those rare, scattered unions, run 32
+//     at a time, one a lane.
 
 #pragma once
 
@@ -22,109 +24,141 @@
 namespace ccl {
 namespace {
 
-// Root of p. During the merge other threads lower parent entries; reading
-// through L2 (__ldcg) sees their atomics, and a stale entry is still an
-// ancestor of p, so the walk stays correct either way.
-__device__ __forceinline__ int find_root(const int32_t* parent, int p) {
-  int q = __ldcg(parent + p);
-  while (q != p) {
-    p = q;
-    q = __ldcg(parent + p);
+constexpr int kUnionQueue = 64;  // a warp's queued unions
+
+// A parent page in global memory, indexed from par: reads through L2
+// (__ldcg), where the other CTAs' atomics land.
+struct GlobalPage {
+  int32_t* par;
+  __device__ __forceinline__ int load(int q) const { return __ldcg(par + q); }
+  __device__ __forceinline__ int32_t* at(int q) const { return par + q; }
+};
+
+// The entries of indices base, base + 1, ... in this CTA's shared memory
+// (volatile reads).
+struct SharedPage {
+  int32_t* par;
+  int base;
+  __device__ __forceinline__ int load(int q) const {
+    return ((const volatile int32_t*)par)[q - base];
   }
-  return p;
+  __device__ __forceinline__ int32_t* at(int q) const {
+    return par + (q - base);
+  }
+};
+
+// Root of q, halving the path (every entry read is pointed two steps up).
+// A halved entry is still an ancestor and a root is never halved, so this
+// is safe while unions run. The halving lowers the entry with atomicMin:
+// a walk may read q's parent and grandparent g, then q's own thread store
+// q's root into q's entry (a flatten), and only then the walk halve q; a
+// plain store would put g, a mere ancestor, back over the root.
+template <class Page>
+__device__ __forceinline__ int find_halving(const Page& pg, int q) {
+  while (true) {
+    const int v = pg.load(q);
+    if (v == q) return q;
+    const int g = pg.load(v);
+    if (g == v) return v;
+    atomicMin(pg.at(q), g);
+    q = g;
+  }
 }
 
 // Union of the sets of a and b: the larger root goes under the smaller.
 // When the atomicMin finds that b stopped being a root, the set b had
 // joined is united with a in turn, so no link is lost.
-__device__ void unite(int32_t* parent, int a, int b) {
+template <class Page>
+__device__ __forceinline__ void unite(const Page& pg, int a, int b) {
   while (true) {
-    a = find_root(parent, a);
-    b = find_root(parent, b);
+    a = find_halving(pg, a);
+    b = find_halving(pg, b);
     if (a == b) return;
     if (a > b) {
       const int t = a;
       a = b;
       b = t;
     }
-    const int old = atomicMin(parent + b, a);
+    const int old = atomicMin(pg.at(b), a);
     if (old == b) return;
     b = old;
   }
 }
 
-__global__ void init_parent_kernel(int B, int H, int W,
-                                   int32_t* __restrict__ parent) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * H * W) return;
-  parent[i] = i % (H * W);
-}
-
-// Unions over the backward neighbors. An up-left link is implied when the
-// left pixel is white too (left and up-left are vertical neighbors), and an
-// up-right link when the up pixel is white, so those two are skipped.
-__global__ void merge_kernel(const uint8_t* __restrict__ tern, int B, int H,
-                             int W, int32_t* parent) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * H * W) return;
-  const int hw = H * W;
-  const int b = i / hw, p = i % hw;
-  const int x = p % W, y = p / W;
-  const uint8_t* f = tern + (size_t)b * hw;
-  int32_t* par = parent + (size_t)b * hw;
-  const int v = f[p];
-  if (v == 127) return;
-  const bool left = x > 0 && f[p - 1] == v;
-  const bool up = y > 0 && f[p - W] == v;
-  if (left) unite(par, p, p - 1);
-  if (up) unite(par, p, p - W);
-  if (v == 255 && y > 0) {
-    if (!left && x > 0 && f[p - W - 1] == 255) unite(par, p, p - W - 1);
-    if (!up && x < W - 1 && f[p - W + 1] == 255) unite(par, p, p - W + 1);
+// The unions pixel t[0] (column x of rows w pixels wide, not in the first
+// row; the row above `pitch` bytes before it) needs with the row above,
+// once a pair of row runs: the up link is implied when the left pixel is
+// in t[0]'s run and the up-left pixel in the up pixel's run (the leftmost
+// pixel of the overlap makes it); between whites an up-left link is
+// implied when the left pixel is white too, an up-right link when the up
+// pixel is. Returns bit k for the link to the pixel pitch + 1 - k before
+// t[0]; none for a skip pixel.
+__device__ __forceinline__ unsigned links_up(const uint8_t* t, int pitch,
+                                             int x, int w) {
+  const int v = t[0];
+  if (v == 127) return 0;
+  const bool left = x > 0 && t[-1] == v;
+  const int up_left = x > 0 ? t[-pitch - 1] : 127;
+  const bool up = t[-pitch] == v;
+  unsigned links = up && !(left && up_left == v) ? 2u : 0u;
+  if (v == 255) {
+    if (!left && up_left == 255) links |= 1u;
+    if (!up && x < w - 1 && t[-pitch + 1] == 255) links |= 4u;
   }
+  return links;
 }
 
-// labels[p] = the padded-flat index (ry * wp + rx) of p's root, kInvalid on
-// skip pixels.
-__global__ void root_label_kernel(const uint8_t* __restrict__ tern,
-                                  const int32_t* __restrict__ parent, int B,
-                                  int H, int W, int wp,
-                                  int32_t* __restrict__ labels) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * H * W) return;
-  const int hw = H * W;
-  const int b = i / hw, p = i % hw;
-  if (tern[i] == 127) {
-    labels[i] = kInvalid;
-    return;
+// A warp's unions, queued: they are few and far between (one a pair of
+// runs), so the warp runs them 32 at a time, one a lane, instead of one
+// lane at a time in a warp that waits. Every lane of the warp makes the
+// same calls; q points at the warp's 2 * kUnionQueue words of shared
+// memory.
+template <class Page>
+struct UnionQueue {
+  Page pg;
+  int32_t* qa;
+  int32_t* qb;
+  int lane;
+  int count;  // queued, the same in every lane
+
+  __device__ UnionQueue(const Page& page, int32_t* q)
+      : pg(page), qa(q), qb(q + kUnionQueue), lane(threadIdx.x & 31),
+        count(0) {}
+
+  // Queues the union of a and b in the lanes where `has` holds.
+  __device__ __forceinline__ void push(bool has, int a, int b) {
+    const uint32_t m = __ballot_sync(kFullWarp, has);
+    if (has) {
+      const int slot = count + __popc(m & ((1u << lane) - 1));
+      qa[slot] = a;
+      qb[slot] = b;
+    }
+    count += __popc(m);
+    if (count >= 32) {
+      __syncwarp();
+      unite(pg, qa[lane], qb[lane]);
+      const int rest = count - 32;
+      int a2 = 0, b2 = 0;
+      if (lane < rest) {
+        a2 = qa[32 + lane];
+        b2 = qb[32 + lane];
+      }
+      __syncwarp();
+      if (lane < rest) {
+        qa[lane] = a2;
+        qb[lane] = b2;
+      }
+      __syncwarp();
+      count = rest;
+    }
   }
-  const int r = find_root(parent + (size_t)b * hw, p);
-  labels[i] = (r / W) * wp + r % W;
-}
 
-// tern [B, H, W] u8 -> parent [B, H, W] int32 with every component's
-// pixels under its minimum-index root. Returns the launch error code.
-inline int union_find(const uint8_t* tern, int B, int H, int W,
-                      int32_t* parent, cudaStream_t s) {
-  const int grid = blocks_for(B * H * W);
-  init_parent_kernel<<<grid, kThreads, 0, s>>>(B, H, W, parent);
-  CCL_CHECK_LAUNCH();
-  merge_kernel<<<grid, kThreads, 0, s>>>(tern, B, H, W, parent);
-  CCL_CHECK_LAUNCH();
-  return 0;
-}
-
-// tern -> labels [B, H, W] int32 at the global fixed point, padded-flat
-// with row pitch wp. Scratch: parent [B, H, W] int32.
-inline int label_exact(const uint8_t* tern, int B, int H, int W, int wp,
-                       int32_t* parent, int32_t* labels, cudaStream_t s) {
-  const int rc = union_find(tern, B, H, W, parent, s);
-  if (rc) return rc;
-  root_label_kernel<<<blocks_for(B * H * W), kThreads, 0, s>>>(
-      tern, parent, B, H, W, wp, labels);
-  CCL_CHECK_LAUNCH();
-  return 0;
-}
+  // Runs what is left in the queue.
+  __device__ __forceinline__ void drain() {
+    __syncwarp();
+    if (lane < count) unite(pg, qa[lane], qb[lane]);
+  }
+};
 
 }  // namespace
 }  // namespace ccl

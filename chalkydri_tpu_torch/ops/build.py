@@ -43,9 +43,8 @@ _SIGNATURES = {
     "chalkydri_threshold": [_P, _I, _I, _I, _I] + [_P] * 4,
     # tern, B, H, W, iters, bits, labels, scratch, flags, stream
     "chalkydri_label_components": [_P, _I, _I, _I, _I] + [_P] * 5,
-    # gray, B, H, W, wp, min_diff, tile_min, tile_max, tern, parent,
-    # labels, stream
-    "chalkydri_threshold_ccl_exact": [_P, _I, _I, _I, _I, _I] + [_P] * 6,
+    # gray, B, H, W, wp, min_diff, tern, parent, labels, stream
+    "chalkydri_threshold_ccl_exact": [_P, _I, _I, _I, _I, _I] + [_P] * 4,
     # tern, B, H, W, wp, C, labels, stream
     "chalkydri_label_components_cluster": [_P] + [_I] * 5 + [_P] * 2,
     # tern, labels, B, H, W, C, out, stream

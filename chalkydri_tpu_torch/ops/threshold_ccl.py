@@ -13,8 +13,12 @@ labeling for the full-resolution quad search (``quad_decimate=1``).
   its raster-first pixel's index in the frame padded to a multiple of 128
   columns (``detector.segment.padded_width``). The TPU kernel blocks rows
   to fit VMEM and merges the seams; on this card a union-find computes
-  the fixed point those merges certify. It has no ``block_rows``,
-  ``merge`` or ``merge_rounds``: here they would change nothing it returns.
+  the fixed point those merges certify, in three launches: the threshold
+  fused with a union-find in shared memory over each rectangle of
+  ``RECT_ROWS`` x ``RECT_COLS`` pixels, the unions across the
+  rectangles' borders, and a pass that resolves the labels of the
+  components that cross them. It has no ``block_rows``, ``merge`` or
+  ``merge_rounds``: here they would change nothing it returns.
 
 Each wrapper launches its kernel (``csrc/threshold_ccl.cu``) on CUDA
 tensors and runs its plain twin on CPU tensors; tern, labels and their
@@ -37,6 +41,10 @@ from chalkydri_tpu_torch.detector.threshold import (
 )
 from chalkydri_tpu_torch.ops import build
 from chalkydri_tpu_torch.ops.ccl_extract import check_frames
+
+# B5's rectangle (``csrc/threshold_ccl.cu``: kRows, kCols), whole 4x4
+# threshold tiles; the last rectangles of a frame are cut to its edges.
+RECT_ROWS, RECT_COLS = 32, 128
 
 
 def threshold_ccl_plain(gray: torch.Tensor, iters: int = 12,
@@ -123,15 +131,12 @@ def threshold_ccl_exact(gray: torch.Tensor,
         return threshold_ccl_exact_plain(gray, min_diff)
     check_frames(gray, "threshold_ccl_exact")
     b, h, w = gray.shape
-    wp = padded_width(w)
-    tile_min = build.empty((b, h // 4, w // 4), torch.uint8, gray)
-    tile_max = build.empty((b, h // 4, w // 4), torch.uint8, gray)
     tern = build.empty((b, h, w), torch.uint8, gray)
     parent = build.empty((b, h, w), torch.int32, gray)
     labels = build.empty((b, h, w), torch.int32, gray)
     build.launch("chalkydri_threshold_ccl_exact", gray, gray.data_ptr(), b,
-                 h, w, wp, min_diff, tile_min.data_ptr(), tile_max.data_ptr(),
-                 tern.data_ptr(), parent.data_ptr(), labels.data_ptr())
+                 h, w, padded_width(w), min_diff, tern.data_ptr(),
+                 parent.data_ptr(), labels.data_ptr())
     threshold_ccl_exact.launches += 1
     return tern, labels
 

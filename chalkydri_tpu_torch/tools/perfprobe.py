@@ -22,10 +22,13 @@ on the bench scene at [4, 800, 1280], on a page where all 12 rounds bind,
 and inside B1 at [4, 400, 640] and at the deployed rig's [2, 652, 800]
 (one cluster launch each), with the launches that ran and the
 CUDA-event time of the whole call (the difference is host and launch
-time); then a ``B2 ...`` line of the same form for B2 on the bench
-scene's sorted candidates, [4, 65536]; then a line of the same form for
-each of B6's two entries and B7 at the full-resolution band shapes of
-the row-banded step ([2, 328, 1600], B7 with its halo rows [2, 331, 1600]).
+time); then ``B5 ...`` lines of the same form for B5 on the deployed
+scene, [2, 1304, 1600], and on a serpentine of that shape whose snake
+crosses every tile border (``B5_STRIPES``); then a ``B2 ...`` line of the
+same form for B2 on the bench scene's sorted candidates, [4, 65536]; then
+a line of the same form for each of B6's two entries and B7 at the
+full-resolution band shapes of the row-banded step ([2, 328, 1600], B7
+with its halo rows [2, 331, 1600]).
 
 To set two trees side by side in one call, run this file as a script
 with ``PYTHONPATH`` at the other tree's root: it then measures that
@@ -151,32 +154,54 @@ def band_stage_times(step, place, frames, gyro, qd: int, edge_cap: int,
     return out
 
 
-def device_times(fn, calls: int = 10) -> dict[str, dict]:
-    """The device time of every CUDA kernel that ``calls`` calls of
-    ``fn`` launch, by ``torch.profiler``: {kernel name: {"launches_per_call",
-    "us_per_call"}}, after one warm-up call."""
+def device_times(fn, calls: int = 10, per_call: int | None = None,
+                 wrapper=None, tries: int = 5) -> dict[str, dict]:
+    """The device time of every CUDA kernel that ``calls`` calls of ``fn``
+    launch, by ``torch.profiler``: {kernel name: {"launches_per_call",
+    "us_per_call"}}, after one warm-up call.
+
+    The profiler's window sometimes loses launches. A window in which a
+    kernel's launches are not a whole number a call, or, with
+    ``per_call``, that did not see ``per_call`` device launches for each
+    call it added to ``wrapper.launches`` (the kernel wrapper's own count,
+    which must grow by ``calls``), is profiled again, ``tries`` times at
+    most; then this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            # "void ccl::(anonymous namespace)::name<16>(int*, ..."
-            m = re.search(r"(\w+(<[^>]*>)?)\(", e.key)
-            key = m.group(1) if m else e.key
-            # the profiler may split one kernel over several entries
-            k = kernels.setdefault(key, {"launches_per_call": 0.0,
-                                         "us_per_call": 0.0})
-            k["launches_per_call"] += e.count / calls
-            k["us_per_call"] += us / calls
-    return kernels
+    seen = []
+    for _ in range(tries):
+        before = wrapper.launches if wrapper is not None else 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        added = wrapper.launches - before if wrapper is not None else calls
+        counts, us = {}, {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+            if t > 0:
+                # "void ccl::(anonymous namespace)::name<16>(int*, ..."
+                m = re.search(r"(\w+(<[^>]*>)?)\(", e.key)
+                key = m.group(1) if m else e.key
+                # the profiler may split one kernel over several entries
+                counts[key] = counts.get(key, 0) + e.count
+                us[key] = us.get(key, 0.0) + t
+        whole = all(n % calls == 0 for n in counts.values())
+        if (whole and added == calls
+                and (per_call is None
+                     or sum(counts.values()) == per_call * added)):
+            return {k: {"launches_per_call": counts[k] // calls,
+                        "us_per_call": us[k] / calls} for k in counts}
+        seen.append((added, counts))
+        print(f"device_times: the profiler's window saw {counts} in {added} "
+              f"calls; profiling again", flush=True)
+    raise RuntimeError(
+        f"torch.profiler lost launches in {tries} windows of {calls} calls "
+        f"(wanted {per_call} device launches a call): (wrapper calls, "
+        f"device launches by kernel) {seen}")
 
 
 def event_us(fn, calls: int = 10) -> float:
@@ -193,11 +218,18 @@ def event_us(fn, calls: int = 10) -> float:
     return statistics.median(times)
 
 
+# Stripes of the serpentine B5 is timed on at the deployed shape: 5.3 px
+# apart at W = 1600, so every 3x3 tile neighborhood has contrast and the
+# page thresholds to itself; the snake crosses every tile border.
+B5_STRIPES = 300
+
+
 def ccl_round_times(frames, deployed, calls: int = 10) -> dict[str, dict]:
     """Device us of every CUDA kernel inside one call of B4 (bench scene
-    and a page on which all rounds bind), of B1 (bench and ``deployed``
-    scene, decimated) and of B2, by kernel name, with its launches a call,
-    and the whole call's CUDA-event us."""
+    and a page on which all rounds bind), of B5 (``deployed`` scene and a
+    serpentine of its shape), of B1 (bench and ``deployed`` scene,
+    decimated) and of B2, by kernel name, with its launches a call, and
+    the whole call's CUDA-event us."""
     import numpy as np
 
     from chalkydri_tpu_torch.detector.cluster import (
@@ -209,12 +241,18 @@ def ccl_round_times(frames, deployed, calls: int = 10) -> dict[str, dict]:
     from chalkydri_tpu_torch.detector.threshold import adaptive_threshold
     from chalkydri_tpu_torch.ops.ccl_extract import threshold_ccl_extract
     from chalkydri_tpu_torch.ops.segment_stats import segment_stats
-    from chalkydri_tpu_torch.ops.threshold_ccl import label_components_ccl
+    from chalkydri_tpu_torch.ops.threshold_ccl import (
+        label_components_ccl,
+        threshold_ccl_exact,
+    )
     from chalkydri_tpu_torch.tools.scenes import serpentine
 
     tern = adaptive_threshold(frames)
     b, h, w = tern.shape
     worst = torch.from_numpy(np.stack([serpentine(h, w, 200)] * b)).to(
+        frames.device)
+    snake = torch.from_numpy(np.stack(
+        [serpentine(*deployed.shape[1:], B5_STRIPES)] * len(deployed))).to(
         frames.device)
     small, dep_small = decimate2(frames), decimate2(deployed)
     black, white, payload, _ = compact_candidates(
@@ -225,6 +263,10 @@ def ccl_round_times(frames, deployed, calls: int = 10) -> dict[str, dict]:
              lambda: label_components_ccl(tern, 12),
              f"B4 all 12 rounds bind {list(worst.shape)}":
              lambda: label_components_ccl(worst, 12),
+             f"B5 deployed scene {list(deployed.shape)}":
+             lambda: threshold_ccl_exact(deployed),
+             f"B5 serpentine {list(snake.shape)}":
+             lambda: threshold_ccl_exact(snake),
              f"B1 bench scene {list(small.shape)}":
              lambda: threshold_ccl_extract(small, 12),
              f"B1 deployed scene {list(dep_small.shape)}":

@@ -29,11 +29,15 @@
    frame ran; B2 also at [4, 65536] with a run over three tiles and at
    row counts off its 1024-row tile; both with their device time and
    device launches a call by ``torch.profiler``), B3 and B4 at
-   [4, 800, 1280], B5 at [2, 1304, 1600], B6 (both entries) and B7
-   (whole frame and band entry) at the row bands of the spatial scene,
-   2 x 1312x1600 in four bands of 328 rows (and of 164x800 after
-   decimation), with their device time and device launches a call, plus
-   a snake that crosses every seam of four bands; and off those shapes
+   [4, 800, 1280], B5 at [2, 1304, 1600] (with its device time and device
+   launches a call, at most 3; also on a serpentine of that shape whose
+   snake crosses every border of B5's rectangles, and at one tile, a
+   4096-row strip, widths no multiple of 128 or 16, three frames and gray
+   off 4-byte alignment), B6 (both entries) and B7 (whole frame and band
+   entry) at the row bands of the spatial scene, 2 x 1312x1600 in four
+   bands of 328 rows (and of 164x800 after decimation), with their device
+   time and device launches a call, plus a snake that crosses every seam
+   of four bands; and off those shapes
    (bands of 1-3 rows and of odd height, CTAs of B6's cluster left
    without rows, widths that are no multiple of 4 or 16, snakes through
    every CTA, the last band of the cluster route and one row over it,
@@ -388,7 +392,8 @@ def routes(dev, card, dep_small, big) -> None:
     time_kernel(f"B1 threshold_ccl_extract deployed qd2, cluster of "
                 f"{cluster_size(*dep_small.shape)}", dep_small.shape, card,
                 lambda: threshold_ccl_extract(dep_small, iters=12),
-                lambda: threshold_ccl_extract_plain(dep_small, iters=12))
+                lambda: threshold_ccl_extract_plain(dep_small, iters=12),
+                threshold_ccl_extract, 1)
     require_equal("B1 chain route", ("black", "white", "payload"),
                   threshold_ccl_extract(big, iters=12),
                   threshold_ccl_extract_plain(big, iters=12))
@@ -493,6 +498,10 @@ def band_phases(dev, card, frames_sp):
         t_ext = t_pad[:, j * hl:(j + 1) * hl + 3].contiguous()
         l_ext = l_pad[:, j * hl:(j + 1) * hl + 3].contiguous()
         px, px_ext = t.numel(), t_ext.numel()
+        wrappers = {"label_components_blocked": label_components_blocked,
+                    "propagate_components_blocked":
+                    propagate_components_blocked,
+                    "extract_candidates_band": extract_candidates_band}
         pairs = {
             "label_components_blocked": (
                 lambda: label_components_blocked(t),
@@ -513,7 +522,7 @@ def band_phases(dev, card, frames_sp):
             ms, plain_ms, dev_ms, dev_launches = time_kernel(
                 f"{'B7' if 'band' in name else 'B6'} {name}",
                 t_ext.shape if "band" in name else t.shape, card, kernel,
-                plain)
+                plain, wrappers[name], 1)
             out[name] = (err, ms, plain_ms, nbytes, ops, dev_ms, dev_launches)
 
     # a snake through every seam of four 16-row bands
@@ -813,15 +822,18 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
             "library_ms": None}  # no single PyTorch call computes these
 
 
-def time_kernel(label, shape, card, kernel, plain):
+def time_kernel(label, shape, card, kernel, plain, wrapper, per_call):
     """``time_pair`` with the kernel's device time a call (the sum of the
     kernels ``torch.profiler`` sees) and its device launches a call, on
-    the same line."""
+    the same line. ``wrapper`` is the kernel's wrapper, which ``kernel``
+    calls once; every call must show ``per_call`` device launches in the
+    profiler's window (``device_times`` profiles again when launches went
+    missing, and fails after five windows)."""
     from chalkydri_tpu_torch.tools.perfprobe import device_times
 
     ms = statistics.median(cuda_times_ms(kernel))
     plain_ms = statistics.median(cuda_times_ms(plain))
-    kernels = device_times(kernel)
+    kernels = device_times(kernel, per_call=per_call, wrapper=wrapper)
     device_ms = sum(k["us_per_call"] for k in kernels.values()) / 1e3
     launches = sum(k["launches_per_call"] for k in kernels.values())
     print(f"{label} {tuple(shape)}: kernel {ms:.4f} ms (device {device_ms:.4f}"
@@ -837,6 +849,51 @@ def time_pair(label, shape, card, kernel, plain):
     print(f"{label} {tuple(shape)}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bit-identical [{card}]", flush=True)
     return ms, plain_ms
+
+
+def b5_edge_cases(dev, serp, shape) -> None:
+    """B5 against its twin on serpentines, whose snake crosses every
+    border of B5's rectangles and must get one label (64x128 and the
+    deployed shape), and at shapes direct callers may send: one tile, a
+    4096-row strip, widths no multiple of 128 or 16, three frames, and
+    gray off 4-byte alignment."""
+    import torch
+
+    from chalkydri_tpu_torch.ops.threshold_ccl import (
+        threshold_ccl_exact,
+        threshold_ccl_exact_plain,
+    )
+    from chalkydri_tpu_torch.tools.perfprobe import B5_STRIPES
+
+    snake = torch.from_numpy(np.stack(
+        [serpentine(*shape[1:], B5_STRIPES)] * shape[0])).to(dev)
+    for label, gray in (("B5 serpentine", serp),
+                        ("B5 deployed serpentine", snake)):
+        got = threshold_ccl_exact(gray)
+        require_equal(label, ("tern", "labels"), got,
+                      threshold_ccl_exact_plain(gray))
+        for j in range(len(gray)):
+            if len(torch.unique(got[1][j][gray[j] == 255])) != 1:
+                raise AssertionError(f"{label}: the snake has more than 1 "
+                                     f"label")
+    rng = np.random.default_rng(17)
+    odd = ((1, 4, 4), (1, 4096, 8), (1, 68, 200), (2, 100, 36),
+           (3, 132, 264))
+    for s in odd:
+        gray = torch.from_numpy(
+            rng.integers(0, 256, s, dtype=np.uint8)).to(dev)
+        require_equal(f"B5 {s}", ("tern", "labels"),
+                      threshold_ccl_exact(gray),
+                      threshold_ccl_exact_plain(gray))
+    flat = torch.from_numpy(
+        rng.integers(0, 256, 1 + 68 * 200, dtype=np.uint8)).to(dev)
+    off = flat[1:].view(1, 68, 200)  # gray 1 byte off 4-byte alignment
+    require_equal("B5 gray off alignment", ("tern", "labels"),
+                  threshold_ccl_exact(off), threshold_ccl_exact_plain(off))
+    print(f"B5 serpentines [1, 64, 128] and {list(shape)} "
+          f"({B5_STRIPES} stripes): bit-identical, each snake one label; "
+          f"noise bit-identical at {[list(s) for s in odd]} and with gray "
+          f"1 byte off alignment", flush=True)
 
 
 def main() -> None:
@@ -916,7 +973,8 @@ def main() -> None:
     b1_ms, b1_plain_ms, b1_dev_ms, b1_dev_launches = time_kernel(
         "B1 threshold_ccl_extract", small.shape, card,
         lambda: threshold_ccl_extract(small, iters=12),
-        lambda: threshold_ccl_extract_plain(small, iters=12))
+        lambda: threshold_ccl_extract_plain(small, iters=12),
+        threshold_ccl_extract, 1)
     b1_px = small.numel()
     b1_rounds = int(rounds_needed(adaptive_threshold(small), 12).max())
 
@@ -930,7 +988,7 @@ def main() -> None:
     b2_ms, b2_plain_ms, b2_dev_ms, b2_dev_launches = time_kernel(
         "B2 segment_stats", s_key.shape, card,
         lambda: segment_stats(s_key, s_payload),
-        lambda: segment_stats_plain(s_key, s_payload))
+        lambda: segment_stats_plain(s_key, s_payload), segment_stats, 1)
     b2_n = s_key.numel()
 
     routes(dev, card, decimate2(dep_frames), frames[:1])
@@ -972,23 +1030,17 @@ def main() -> None:
           f"frames {b1_rounds})", flush=True)
     ccl_round_checks(dev, card, tern3[0])
 
-    # B5 at the deployed shape, and on the serpentine.
+    # B5 at the deployed shape, on serpentines and off its shapes.
     got5 = threshold_ccl_exact(dep_frames)
     want5 = threshold_ccl_exact_plain(dep_frames)
     require_equal("B5", ("tern", "labels"), got5, want5)
     b5_err = max_abs_err(got5, want5)
-    serp_exact = threshold_ccl_exact(serp)
-    require_equal("B5 serpentine", ("tern", "labels"), serp_exact,
-                  threshold_ccl_exact_plain(serp))
-    if len(torch.unique(serp_exact[1][serp == 255])) != 1:
-        raise AssertionError("B5 serpentine: the snake has more than 1 label")
-    b5_ms, b5_plain_ms = time_pair(
+    b5_ms, b5_plain_ms, b5_dev_ms, b5_dev_launches = time_kernel(
         "B5 threshold_ccl_exact", dep_frames.shape, card,
         lambda: threshold_ccl_exact(dep_frames),
-        lambda: threshold_ccl_exact_plain(dep_frames))
+        lambda: threshold_ccl_exact_plain(dep_frames), threshold_ccl_exact, 3)
     b5_px = dep_frames.numel()
-    print("B5 serpentine: bit-identical, the whole snake one label",
-          flush=True)
+    b5_edge_cases(dev, serp, dep_frames.shape)
 
     # B6 and B7 at the spatial path's band shapes, and off them.
     band = band_phases(dev, card, sp_frames)
@@ -1104,11 +1156,12 @@ def main() -> None:
                      "ccl_kernel.py:745",
                      qd1["label_components_ccl"], b4_err, b4_ms, b4_plain_ms,
                      b3_px * (1 + 4), b3_px * b3_rounds * ROUND_OPS),
-        kernel_entry("threshold_ccl_exact", "threshold_ccl.cu",
-                     "ccl_kernel.py:1544",
-                     dep["threshold_ccl_exact"], b5_err, b5_ms, b5_plain_ms,
-                     b5_px * (1 + 1 + 4),
-                     b5_px * (THRESH_OPS + UNION_FIND_OPS)),
+        dict(kernel_entry("threshold_ccl_exact", "threshold_ccl.cu",
+                          "ccl_kernel.py:1544",
+                          dep["threshold_ccl_exact"], b5_err, b5_ms,
+                          b5_plain_ms, b5_px * (1 + 1 + 4),
+                          b5_px * (THRESH_OPS + UNION_FIND_OPS)),
+             device_ms=b5_dev_ms, launches_per_call=b5_dev_launches),
         *(dict(kernel_entry(name, source, replaces, spatial[1][name],
                             *band[name][:5]),
                device_ms=band[name][5], launches_per_call=band[name][6])

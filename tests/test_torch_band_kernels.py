@@ -8,7 +8,8 @@ block-wide max-scan over the chunks (emulated as the kernel cuts it: a few
 chunks a thread, warp scans, warp totals), unions with the row above once
 a pair of runs inside each CTA (queued by the warps, so in any order),
 each CTA's trees flattened with path halving and its non-skip local roots
-marked, unions across the CTAs' top rows, the local roots resolved
+marked, unions across the CTAs' top rows (started from the two pixels'
+local roots), the local roots resolved
 over the cluster, then the label entry's padded-flat root index or the
 propagate entry's fold (lanes of one root reduced per 32-pixel chunk, one
 atomicMin a group into the root's slot of ``out``) and write-back. The
@@ -172,9 +173,17 @@ class ClusterModel:
         return xs
 
     def find(self, q):
-        while self.par[q] != q:
-            q = self.par[q]
-        return q
+        """ccl::find_halving, run alone: every entry it passes is pointed
+        at its grandparent."""
+        while True:
+            v = self.par[q]
+            if v == q:
+                return q
+            g = self.par[v]
+            if g == v:
+                return v
+            self.par[q] = min(self.par[q], g)
+            q = g
 
     def halving_walk(self, p, atomic=True):
         """Pixel p's thread in the flatten, one shared-memory access a step
@@ -236,7 +245,10 @@ class ClusterModel:
                 return
             b = old
 
-    def unite_up(self, p):
+    def unite_up(self, p, from_local_roots=False):
+        """Pixel p's unions with the row above, once a pair of runs
+        (ccl::links_up); ``from_local_roots``: each union starts from the
+        two pixels' entries, their local roots, as phase 3's do."""
         f, w = self.f, self.w
         v, x = f[p], p % w
         if v == 127:
@@ -244,13 +256,19 @@ class ClusterModel:
         left = x > 0 and f[p - 1] == v
         up_left = f[p - w - 1] if x > 0 else 127
         up = f[p - w] == v
+        links = []
         if up and not (left and up_left == v):
-            self.unite(p, p - w)
+            links.append(p - w)
         if v == 255:
             if not left and up_left == 255:
-                self.unite(p, p - w - 1)
+                links.append(p - w - 1)
             if not up and x < w - 1 and f[p - w + 1] == 255:
-                self.unite(p, p - w + 1)
+                links.append(p - w + 1)
+        for q in links:
+            if from_local_roots:
+                self.unite(self.par[p], self.par[q])
+            else:
+                self.unite(p, q)
 
     def runs(self, y0, y1):
         """Every pixel of the CTA under its row run's start."""
@@ -289,10 +307,14 @@ class ClusterModel:
         tops = [y0 * w + x for y0, y1 in self.ctas if y1 > y0 and y0 > 0
                 for x in range(w)]
         for p in self.shuffled(tops):
-            self.unite_up(p)
+            self.unite_up(p, from_local_roots=True)
         roots = np.flatnonzero(self.local_root)
         for p in self.shuffled(roots):
             self.par[p] = self.find(p)
+        # step 5 reads a pixel's local root in its own CTA's shared memory
+        leaf = np.flatnonzero((self.f != 127) & ~self.local_root)
+        per_cta = self.r * w
+        assert np.array_equal(self.par[leaf] // per_cta, leaf // per_cta)
         return np.where(self.local_root, self.par,
                         self.par[self.par])
 
