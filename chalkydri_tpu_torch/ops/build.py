@@ -5,17 +5,20 @@ library with a plain C interface, loaded with ``ctypes``. The build runs
 on first use into ``chalkydri_tpu_torch/_build/`` (ignored by git) and is
 reused while the sources, the shared header and the flags hash the same.
 Nothing here builds at import time, so the package imports on machines
-without a CUDA toolkit.
+without a CUDA toolkit. First use is safe across threads (the App's
+capacity warm-up thread may reach its first kernel call with the loop):
+one lock covers the build and the load, and the temporary files carry the
+process and thread ids.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -90,16 +93,29 @@ def _run_all(cmds: list[list[str]]) -> None:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}\n{err}")
 
 
+_LOCK = threading.RLock()  # build() and kernel_library(), one thread at a time
+_LIBRARY: ctypes.CDLL | None = None
+
+
 def build() -> str:
     """Compile the kernels unless a library for these sources exists;
     returns its path. One nvcc per source, all started together, then one
     link."""
-    path = library_path()
-    if os.path.exists(path):
+    with _LOCK:
+        path = library_path()
+        if os.path.exists(path):
+            return path
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = _nvcc()
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        _compile(nvcc, tmp)
+        os.replace(tmp, path)
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    tmp = f"{path}.{os.getpid()}.tmp"
+
+
+def _compile(nvcc: str, tmp: str) -> None:
+    """Compile every source to ``tmp.<source>.o`` and link them to
+    ``tmp``; the objects are removed either way."""
     objs = [f"{tmp}.{s}.o" for s in SOURCES]
     try:
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC_DIR, s)]
@@ -109,19 +125,23 @@ def build() -> str:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
-    os.replace(tmp, path)
-    return path
 
 
-@functools.lru_cache(maxsize=1)
 def kernel_library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(build())
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """The loaded kernel library (built on first call, once, whichever
+    threads call at the same time)."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    with _LOCK:
+        if _LIBRARY is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIBRARY = lib
+    return _LIBRARY
 
 
 def empty(shape, dtype, like: torch.Tensor) -> torch.Tensor:

@@ -58,7 +58,23 @@
    frames;
 6. checks the options: the bench scene as YUYV gives the GREY step's ids
    and poses, and a flooded frame with a small ``max_edge_points`` drives
-   ``capacity_fallback`` to its second program.
+   ``capacity_fallback`` to its second program;
+7. drives the runtime App (``runtime.app.App``) at the deployed rig: two
+   1600x1304 cameras on mounts 0.3 m apart seeing tags 28-31 from one
+   robot pose, frames put in through each chain's ``camera._cap``, the
+   gyro sent to the App's whacknet ``Comm`` as the roboRIO's 8-byte
+   double, packets read from a loopback socket; at ``pipeline_depth`` 1
+   and 0 every packet must carry 4 tags and a position within 0.02 m,
+   every frame a pose packet, every poll without a frame a heartbeat, and
+   every dispatched step exactly one B1 and one B2 launch (counts set to
+   0 just before); the App's outputs equal a direct step's; it prints
+   the App's rate, the host p50/p90 of its spans, the packets' latency
+   field and the upload time of one staged batch; then
+   ``capacity_fallback`` in the App (the 2x-budget step warmed up in a
+   thread while the loop runs); and runs ``python -m
+   chalkydri_tpu_torch.main`` on ``examples/chalkydri.ron`` (synthetic
+   cameras, packets to loopback), which must exit 0 and log frames of
+   both cameras.
 
 Every failed check raises (non-zero exit). The last three lines are a
 JSON kernel report, the ``nvidia-smi`` name and power limit line, and
@@ -68,6 +84,7 @@ JSON kernel report, the ``nvidia-smi`` name and power limit line, and
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -89,6 +106,12 @@ STEPS = 5  # checked steps per path
 # host-clock steps per side and turn
 TIMED_STEPS = {"qd2": 10, "qd1": 6, "spatial": 6}
 BANDS = 4  # row bands of the spatial path, all on the one card
+APP_WARMUP, APP_ITERS = 3, 30  # App iterations per pipeline depth
+# The App's rig: the deployed lens on two mounts 0.3 m apart, one robot pose.
+APP_MOUNT_Y = (0.15, -0.15)  # m
+APP_POSE = (12.9, 3.99, 0.015)  # x m, y m, yaw rad (the gyro the robot sends)
+APP_GAP_EVERY = 7  # camera 1 has no fresh frame every 7th poll
+MAIN_ITERS = 20  # iterations of the ``main`` subprocess
 
 # The least time the card could take (H100 SXM datasheet figures):
 # bytes over the memory rate, operations over the
@@ -896,6 +919,294 @@ def b5_edge_cases(dev, serp, shape) -> None:
           f"1 byte off alignment", flush=True)
 
 
+class FrameFeed:
+    """A capture put in through ``camera._cap``: ``latest()`` gives the
+    same frame each poll, stamped now, except on every ``gap_every``-th
+    poll after ``gap_from``, which has no fresh frame."""
+
+    def __init__(self, frame, gap_every=0, gap_from=0):
+        self.frame, self.gap_every, self.gap_from = frame, gap_every, gap_from
+        self.polls = self.given = self.gaps = 0
+        self.last_fresh = False
+
+    def latest(self):
+        n, self.polls = self.polls, self.polls + 1
+        self.last_fresh = not (self.gap_every and n >= self.gap_from
+                               and n % self.gap_every == 0)
+        if not self.last_fresh:
+            self.gaps += 1
+            return None
+        self.given += 1
+        return self.frame, time.monotonic_ns() // 1000
+
+    def close(self):
+        pass
+
+
+def app_graph(calib, cams):
+    """The App's task graph: one CamPipeline -> AprilTags chain per entry
+    of ``cams`` (calib and mount JSON), cameras absent (frames are put in
+    through ``camera._cap``), and the whacknet comm bundle."""
+    from chalkydri_tpu_torch.runtime import TaskGraph
+
+    tasks, cnx = [], []
+    for i, cam in enumerate(cams):
+        tasks += [
+            {"id": f"camera_{i}", "type": "CamPipeline",
+             "config": {"id": f"absent-{i}", "name": f"cam{i}",
+                        "width": calib["width"], "height": calib["height"]}},
+            {"id": f"apriltags_{i}", "type": "chalkydri_apriltags::AprilTags",
+             "config": {"cam_id": i, "calib": cam["calib"],
+                        "robot_to_cam": cam["robot_to_cam"]}}]
+        cnx.append({"src": f"camera_{i}", "dst": f"apriltags_{i}",
+                    "msg": "frame"})
+    return TaskGraph.from_dict(
+        {"tasks": tasks, "cnx": cnx,
+         "resources": [{"id": "comm", "provider": "whacknet::CommBundle"}]})
+
+
+def recv_all(sock) -> list:
+    """Every datagram waiting on ``sock`` (its timeout ends the wait)."""
+    import socket
+
+    out = []
+    while True:
+        try:
+            out.append(sock.recvfrom(64)[0])
+        except socket.timeout:
+            return out
+
+
+def app_phase(dev, card, counters) -> None:
+    """The runtime App at the deployed rig: two 1600x1304 cameras on
+    mounts 0.3 m apart seeing tags 28-31 from one robot pose, the gyro
+    from a robot socket, packets read from a loopback socket, at
+    ``pipeline_depth`` 1 and 0. Checks every packet, the heartbeats, one
+    B1 and one B2 launch per dispatched step and the outputs against a
+    direct step; prints the App's rate, span times, packet latencies and
+    the upload time of one staged batch."""
+    import socket
+    import struct
+
+    import torch
+
+    from chalkydri_tpu_torch.geometry.field_layout import load_field_layout
+    from chalkydri_tpu_torch.io.whacknet import Comm, decode_measurement
+    from chalkydri_tpu_torch.pipeline import (
+        build_rig_from_config,
+        make_vision_pipeline,
+    )
+    from chalkydri_tpu_torch.runtime import App
+    from chalkydri_tpu_torch.tools.scenes import FIELD_JSON, SCENES, render_scene
+    from chalkydri_tpu_torch.utils.tracing import SPANS
+
+    calib, _, mount = SCENES["deployed"]
+    cams = [{"calib": json.dumps({"OpenCVModel5": calib}),
+             "robot_to_cam": json.dumps(dict(mount, y=y))}
+            for y in APP_MOUNT_Y]
+    layout = load_field_layout(FIELD_JSON, dtype=torch.float32, device=dev)
+    frames = []
+    for cam in cams:
+        _, rc_one = build_rig_from_config([cam], layout, device="cpu")
+        frames.append(render_scene(layout, rc_one, *APP_POSE, calib))
+    params, rc = build_rig_from_config(cams, layout, device=dev)
+    want = make_vision_pipeline(layout, params, rc, device=dev)(
+        torch.from_numpy(np.stack(frames)).to(dev),
+        torch.full((len(cams),), APP_POSE[2], dtype=torch.float32,
+                   device=dev))
+
+    rio = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rio.bind(("127.0.0.1", 0))
+    rio.settimeout(0.5)
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    gyro_port = probe.getsockname()[1]
+    probe.close()
+    comm = Comm(remote_addr="127.0.0.1", remote_port=rio.getsockname()[1],
+                gyro_port=gyro_port)
+    robot = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        deadline = time.monotonic() + 5.0
+        while comm.gyro_angle() != APP_POSE[2]:  # the roboRIO's 8-byte double
+            if time.monotonic() > deadline:
+                raise AssertionError("app: the gyro datagram never arrived")
+            robot.sendto(struct.pack("<d", APP_POSE[2]),
+                         ("127.0.0.1", gyro_port))
+            time.sleep(0.01)
+        comm_path = "native" if comm._native is not None else "Python"
+        graph = app_graph(calib, cams)
+        for depth in (1, 0):
+            label = f"app deployed path, pipeline_depth {depth}"
+            app = App(graph, field_layout=layout, comm=comm,
+                      pipeline_depth=depth, device=dev)
+            app.start_all_tasks()
+            g = app.groups[0]
+            if not (len(app.groups) == 1 and g.frames_host.is_pinned()
+                    and tuple(g.frames_host.shape) == (2, 1304, 1600)):
+                raise AssertionError(f"{label}: staging "
+                                     f"{tuple(g.frames_host.shape)}")
+            feeds = [FrameFeed(frames[0]),
+                     FrameFeed(frames[1], APP_GAP_EVERY, APP_WARMUP)]
+            for ch, feed in zip(app.fused_chains, feeds):
+                ch.camera._cap = feed
+            outs = [app.run_one_iteration() for _ in range(APP_WARMUP)]
+            torch.cuda.synchronize()
+            recv_all(rio)
+            in_flight = [depth == 1 and f.last_fresh for f in feeds]
+            given = [f.given for f in feeds]
+            gaps = [f.gaps for f in feeds]
+            for fn in counters.values():
+                fn.launches = 0
+            SPANS.reset()
+            t0 = time.perf_counter()
+            outs = [app.run_one_iteration() for _ in range(APP_ITERS)]
+            app.stop_all_tasks()  # publishes the batch still in flight
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            packets = [decode_measurement(d) for d in recv_all(rio)]
+            expect = {"threshold_ccl_extract": APP_ITERS,
+                      "segment_stats": APP_ITERS}
+            if launches != {k: expect.get(k, 0) for k in launches}:
+                raise AssertionError(f"{label}: kernel launches {launches} "
+                                     f"for {APP_ITERS} dispatched steps")
+            for i, out in enumerate(o for o in outs if o is not None):
+                compare_outputs(f"{label} iteration {i} vs a direct step",
+                                want, out)
+            n_out = sum(o is not None for o in outs)
+            for pose, _, ts, cam, n in packets:
+                if n and not (n == 4 and cam in (0, 1)
+                              and math.hypot(pose.x - APP_POSE[0],
+                                             pose.y - APP_POSE[1])
+                              <= POSE_TOL_M):
+                    raise AssertionError(f"{label}: packet cam {cam}, "
+                                         f"{n} tags, {pose}")
+            for c, feed in enumerate(feeds):
+                valid = sum(1 for p in packets if p[3] == c and p[4])
+                beats = sum(1 for p in packets if p[3] == c and not p[4])
+                frames_seen = feed.given - given[c] + in_flight[c]
+                if valid != frames_seen or beats != feed.gaps - gaps[c]:
+                    raise AssertionError(
+                        f"{label}: camera {c} sent {valid} poses and {beats} "
+                        f"heartbeats for {frames_seen} frames and "
+                        f"{feed.gaps - gaps[c]} polls without one")
+            err = max(math.hypot(p[0].x - APP_POSE[0], p[0].y - APP_POSE[1])
+                      for p in packets if p[4])
+            lat = sorted(p[2] for p in packets if p[4])
+            spans = SPANS.summary()
+            print(f"{label}: {APP_ITERS} iterations, {APP_ITERS / wall:.2f} "
+                  f"iterations/s, launches {launches} (one B1, one B2 a "
+                  f"step); {len(packets)} packets: "
+                  f"{sum(1 for p in packets if p[4])} poses, all 4 tags, "
+                  f"max position error {err:.5f} m, "
+                  f"{sum(1 for p in packets if not p[4])} heartbeats for "
+                  f"{feeds[1].gaps - gaps[1]} polls without a frame; "
+                  f"{n_out} outputs equal to a direct step's", flush=True)
+            print(f"{label} host ms p50/p90: " + ", ".join(
+                f"{k} {spans[k]['p50_ms']:.3f}/{spans[k]['p90_ms']:.3f}"
+                for k in ("app.capture", "app.dispatch", "app.fetch_publish"))
+                + f"; packet latency field us p50 "
+                f"{statistics.median(lat):.0f}, p99 "
+                f"{lat[min(len(lat) - 1, len(lat) * 99 // 100)]}; comm path "
+                f"{comm_path} [{card}]", flush=True)
+            if depth == 0:
+                h2d = statistics.median(cuda_times_ms(
+                    lambda: g.frames_host.to(dev, non_blocking=True)))
+                nbytes = g.frames_host.numel()
+                print(f"app staged batch upload (pinned, non_blocking) "
+                      f"{tuple(g.frames_host.shape)} u8, {nbytes} bytes: "
+                      f"{h2d:.4f} ms ({nbytes / h2d / 1e6:.2f} GB/s) "
+                      f"[{card}]", flush=True)
+
+        # capacity_fallback: the 2x-budget step warms up in a thread on a
+        # stream of its own while the loop runs its first steps, then
+        # takes every batch that overflows the standard budget (4,096
+        # candidates: the two views need about 4,300 each).
+        label = "app capacity_fallback"
+        dk = {"max_edge_points": 4096}
+        want_big = make_vision_pipeline(
+            layout, params, rc, device=dev,
+            detector_kwargs={"max_edge_points": 8192})(
+            torch.from_numpy(np.stack(frames)).to(dev),
+            torch.full((len(cams),), APP_POSE[2], dtype=torch.float32,
+                       device=dev))
+        app = App(graph, field_layout=layout, comm=comm, device=dev,
+                  detector_kwargs=dict(dk, capacity_fallback=True))
+        g = app.groups[0]
+        app.start_all_tasks()  # starts the warm-up thread
+        for ch, f in zip(app.fused_chains, frames):
+            ch.camera._cap = FrameFeed(f)
+        SPANS.reset()
+        for _ in range(3):
+            app.run_one_iteration()
+        if not g.step_big_ready.wait(timeout=120):
+            raise AssertionError(f"{label}: the warm-up never finished")
+        outs = [app.run_one_iteration() for _ in range(3)]
+        app.stop_all_tasks()
+        torch.cuda.synchronize()
+        recv_all(rio)
+        redispatched = SPANS.summary().get("app.capacity_redispatch",
+                                           {}).get("n", 0)
+        if redispatched < len(outs):
+            raise AssertionError(f"{label}: {redispatched} redispatches")
+        for i, out in enumerate(outs):
+            compare_outputs(f"{label} iteration {i} vs the 2x-budget step",
+                            want_big, out)
+        print(f"{label}: warm-up thread ready, {redispatched} overflowing "
+              f"batches re-run on the 8,192-point step (points dropped "
+              f"after: {app.dropped_points_total}), outputs equal to a "
+              f"direct 8,192-point step's, tag counts "
+              f"{outs[-1].tag_count.tolist()} [{card}]", flush=True)
+    finally:
+        comm.close()
+        rio.close()
+        robot.close()
+
+
+def main_phase(card) -> None:
+    """``python -m chalkydri_tpu_torch.main`` on the example graph (two
+    absent 1280x800 cameras, so synthetic scenes), packets to a loopback
+    socket: it must exit 0 and log frames of both cameras."""
+    import socket
+
+    from chalkydri_tpu_torch.runtime import read_log
+
+    out_dir = os.path.join(ROOT, "chalkydri_tpu_torch", "_build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    log = os.path.join(out_dir, "main.ctlog")
+    config = os.path.join(out_dir, "chalkydri.toml")
+    with open(config, "w") as f:
+        f.write("team_number = 4533\n")
+    rio = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rio.bind(("127.0.0.1", 0))
+    rio.settimeout(0.5)
+    try:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "chalkydri_tpu_torch.main", "--graph",
+             "examples/chalkydri.ron", "--field", "examples/field_2026.json",
+             "--iters", str(MAIN_ITERS), "--log", log, "--config", config,
+             "--robot-addr", f"127.0.0.1:{rio.getsockname()[1]}"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"main exited {r.returncode}:\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        packets = recv_all(rio)
+    finally:
+        rio.close()
+    per_cam = {}
+    for rec in read_log(log):
+        if rec["kind"] == "frame":
+            per_cam[rec["cam_id"]] = per_cam.get(rec["cam_id"], 0) + 1
+    if sorted(per_cam) != [0, 1]:
+        raise AssertionError(f"main: frame records per camera {per_cam}")
+    print(f"main: python -m chalkydri_tpu_torch.main --graph "
+          f"examples/chalkydri.ron --iters {MAIN_ITERS} exited 0 in "
+          f"{wall:.1f} s; log frame records per camera {per_cam}, "
+          f"{len(packets)} packets [{card}]", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -1132,6 +1443,13 @@ def main() -> None:
           f"4,096 -> second program (8,192) dropped "
           f"{int(out.dropped_points.max())}, ids "
           f"{out.ids[0][out.valid[0]].tolist()}", flush=True)
+
+    # -- the runtime App and main ------------------------------------------
+    t_app = time.perf_counter()
+    app_phase(dev, card, counters)
+    main_phase(card)
+    print(f"app and main phases: {time.perf_counter() - t_app:.1f} s",
+          flush=True)
 
     pages = 3 * 4 * 2  # three int32 candidate pages per direction pair
     report = [
