@@ -17,3 +17,18 @@ The kernels build on first use (``ops/build.py``).
 """
 
 __version__ = "0.1.0"
+
+from chalkydri_tpu_torch.geometry import (  # noqa: F401
+    SE3,
+    OpenCVModel5,
+    load_field_layout,
+)
+from chalkydri_tpu_torch.solver import SqPnP, solve_robot_pose  # noqa: F401
+
+__all__ = [
+    "SE3",
+    "OpenCVModel5",
+    "load_field_layout",
+    "SqPnP",
+    "solve_robot_pose",
+]

@@ -313,6 +313,27 @@ def cluster_candidates_batched(
                     dropped=dropped.to(torch.int32))
 
 
+def cluster_candidates(
+    black: torch.Tensor,
+    white: torch.Tensor,
+    payload: torch.Tensor,
+    max_points: int = MAX_EDGE_POINTS,
+    max_clusters: int = MAX_CLUSTERS,
+    cluster_points: int = MAX_CLUSTER_POINTS,
+    min_points: int = MIN_CLUSTER_POINTS,
+    dropped=None,
+) -> Clusters:
+    """One frame's [n] candidates: ``cluster_candidates_batched`` on a
+    batch of one (kernel B2 on a CUDA tensor), its outputs indexed [0]."""
+    out = cluster_candidates_batched(
+        black[None], white[None], payload[None], max_points=max_points,
+        max_clusters=max_clusters, cluster_points=cluster_points,
+        min_points=min_points,
+        dropped=None if dropped is None
+        else torch.as_tensor(dropped, device=black.device)[None])
+    return Clusters(*(x[0] for x in out))
+
+
 def gradient_clusters_batched(
     tern: torch.Tensor,
     labels: torch.Tensor,
@@ -329,3 +350,20 @@ def gradient_clusters_batched(
         black, white, payload, max_points=max_points,
         max_clusters=max_clusters, cluster_points=cluster_points,
         min_points=min_points, dropped=dropped)
+
+
+def gradient_clusters(
+    tern: torch.Tensor,
+    labels: torch.Tensor,
+    max_points: int = MAX_EDGE_POINTS,
+    max_clusters: int = MAX_CLUSTERS,
+    cluster_points: int = MAX_CLUSTER_POINTS,
+    min_points: int = MIN_CLUSTER_POINTS,
+) -> Clusters:
+    """Clusters of ONE [H, W] frame: ``gradient_clusters_batched`` on a
+    batch of one, indexed [0]."""
+    out = gradient_clusters_batched(
+        tern[None], labels[None], max_points=max_points,
+        max_clusters=max_clusters, cluster_points=cluster_points,
+        min_points=min_points)
+    return Clusters(*(x[0] for x in out))

@@ -70,6 +70,16 @@ def corners_from_lines(cx, cy, nx, ny) -> torch.Tensor:
     return torch.stack([x, y], dim=-1)
 
 
+def fit_quad(points: torch.Tensor, mask: torch.Tensor,
+             fit_iters: int = FIT_ITERS) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fit one quad to one cluster (points [4, P] channel-first, mask [P]):
+    ``fit_quads`` on one cluster. Returns (corners [4, 2], valid)."""
+    q = fit_quads(points[:, None], mask[None],
+                  torch.ones(1, dtype=torch.bool, device=mask.device),
+                  fit_iters)
+    return q.corners[0], q.valid[0]
+
+
 def fit_quads(points: torch.Tensor, mask: torch.Tensor,
               cluster_valid: torch.Tensor, fit_iters: int = FIT_ITERS) -> Quads:
     """points [..., 4, K, P] channel-first (x, y, gx, gy), mask [..., K, P],

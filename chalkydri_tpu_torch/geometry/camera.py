@@ -55,6 +55,39 @@ class OpenCVModel5(NamedTuple):
         """The unconfigured camera (all-zero parameters)."""
         return OpenCVModel5(torch.zeros(9, dtype=dtype, device=device), 0, 0)
 
+    def to_dict(self) -> dict:
+        """The inner dict of the calib JSON: the nine parameters as Python
+        floats in ``PARAM_NAMES`` order, then width and height."""
+        d = dict(zip(PARAM_NAMES, self.params.detach().cpu().tolist()))
+        d["width"] = self.width
+        d["height"] = self.height
+        return d
+
+    def to_json(self) -> str:
+        """The calib JSON string that ``from_json`` reads back."""
+        return json.dumps({"OpenCVModel5": self.to_dict()}, indent=2)
+
+    @property
+    def fx(self) -> torch.Tensor:
+        return self.params[..., 0]
+
+    @property
+    def fy(self) -> torch.Tensor:
+        return self.params[..., 1]
+
+    @property
+    def cx(self) -> torch.Tensor:
+        return self.params[..., 2]
+
+    @property
+    def cy(self) -> torch.Tensor:
+        return self.params[..., 3]
+
+    @property
+    def dist(self) -> torch.Tensor:
+        """(k1, k2, p1, p2, k3)."""
+        return self.params[..., 4:9]
+
     def _p(self, i: int, lead: int) -> torch.Tensor:
         """Parameter ``i`` with ``lead`` trailing singleton dims, so a
         [B, 9] model broadcasts over [B, ...] points."""
@@ -123,3 +156,12 @@ class OpenCVModel5(NamedTuple):
         xn, converged = self.undistort(xd)
         rays = torch.cat([xn, torch.ones_like(xn[..., :1])], dim=-1)
         return rays, converged
+
+
+def stack_models(models: list[OpenCVModel5]) -> OpenCVModel5:
+    """Stack per-camera models along a new leading batch axis; width and
+    height are the largest of the models'."""
+    params = torch.stack([m.params for m in models], dim=0)
+    w = max((m.width for m in models), default=0)
+    h = max((m.height for m in models), default=0)
+    return OpenCVModel5(params, w, h)

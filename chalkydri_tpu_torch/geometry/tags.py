@@ -21,6 +21,7 @@ import torch
 from chalkydri_tpu_torch.geometry.transforms import SE3
 
 TAG_SIZE = 0.1651  # meters, 2026 season
+CORNER_DISTANCE = TAG_SIZE / 2.0
 
 
 @functools.lru_cache(maxsize=16)

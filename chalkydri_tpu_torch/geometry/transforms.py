@@ -61,6 +61,35 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return r.reshape(*q.shape[:-1], 3, 3)
 
 
+def matrix_to_quat(rot: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> (w, x, y, z) quaternion [..., 4], with
+    w >= 0. Branch-free Shepperd's method: of the four candidate
+    formulations, the one whose dominant component (trace, m00, m11 or
+    m22; the first on ties) is largest is taken with a gather."""
+    m00, m01, m02 = rot[..., 0, 0], rot[..., 0, 1], rot[..., 0, 2]
+    m10, m11, m12 = rot[..., 1, 0], rot[..., 1, 1], rot[..., 1, 2]
+    m20, m21, m22 = rot[..., 2, 0], rot[..., 2, 1], rot[..., 2, 2]
+    tr = m00 + m11 + m22
+    # four candidate quaternions (unnormalized), one per dominant component
+    qw = torch.stack([1 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20],
+                     dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21],
+                     dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22],
+                     dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # [..., 4 (case), 4 (wxyz)]
+    diag = torch.stack([tr, m00, m11, m22], dim=-1)
+    pos = torch.arange(4, device=rot.device)
+    case = torch.where(diag == diag.amax(dim=-1, keepdim=True), pos,
+                       4).amin(dim=-1).clamp(max=3)
+    idx = case[..., None, None].expand(*case.shape, 1, 4)
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    q = q / torch.sqrt(torch.clamp(torch.sum(q * q, dim=-1, keepdim=True),
+                                   min=1e-30))
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)  # canonical sign
+
+
 def euler_to_matrix(roll: torch.Tensor, pitch: torch.Tensor,
                     yaw: torch.Tensor) -> torch.Tensor:
     """Roll/pitch/yaw -> rotation matrix, R = Rz(yaw) @ Ry(pitch) @ Rx(roll)."""

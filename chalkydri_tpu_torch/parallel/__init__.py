@@ -7,7 +7,16 @@ between bands are plain functions over the list of band tensors
 (``collectives``).
 """
 
-from chalkydri_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401
+from chalkydri_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    batch_sharding,
+    frame_sharding,
+    make_mesh,
+    replicated,
+)
 from chalkydri_tpu_torch.parallel.pipeline import (  # noqa: F401
     make_sharded_vision_pipeline,
+)
+from chalkydri_tpu_torch.parallel.sharded_stages import (  # noqa: F401
+    sharded_adaptive_threshold,
 )

@@ -86,3 +86,21 @@ def gather_frames(bands, device=None) -> torch.Tensor:
     device = bands[0][0].device if device is None else device
     return torch.cat([torch.cat([b.to(device) for b in group], dim=1)
                       for group in bands], dim=0)
+
+
+def frame_sharding(mesh: Mesh, spatial: bool = False):
+    """The placement of [B, H, W] frames on ``mesh``: frames over ``data``,
+    rows over ``space`` with ``spatial`` (``place_frames`` as a function of
+    the frames, the counterpart of a ``NamedSharding`` for
+    ``jax.device_put``)."""
+    return lambda frames: place_frames(mesh, frames, spatial=spatial)
+
+
+def batch_sharding(mesh: Mesh):
+    """The placement of [B, ...] per-camera values: ``place_batch``."""
+    return lambda x: place_batch(mesh, x)
+
+
+def replicated(mesh: Mesh):
+    """The placement of a value on every data group's first device."""
+    return lambda x: [torch.as_tensor(x).to(row[0]) for row in mesh.grid]

@@ -2,6 +2,7 @@
 
 from chalkydri_tpu_torch.solver.sqpnp import (  # noqa: F401
     MAX_ITER,
+    NUM_CANDIDATES,
     TOL_SQ,
     SqPnPResult,
     build_linear_system,
@@ -18,6 +19,8 @@ from chalkydri_tpu_torch.solver.robot_pose import (  # noqa: F401
     THETA_STD_DEV_SCALAR,
     XY_STD_DEV_SCALAR,
     RobotPoseResult,
+    SqPnP,
     compute_std_devs,
     solve_robot_pose,
+    solve_robot_pose_batched,
 )

@@ -115,3 +115,50 @@ def solve_robot_pose(
     pivoted_pos = tag_centroid + (rot_z @ (robot_pos - tag_centroid)[..., None])[..., 0]
     return RobotPoseResult(rotation=rot_z @ robot_rot, position=pivoted_pos,
                            std_devs=std_devs, valid=res.valid)
+
+
+def solve_robot_pose_batched(
+    tag_rotations: torch.Tensor,  # [B, T, 3, 3]
+    tag_translations: torch.Tensor,  # [B, T, 3]
+    tag_mask: torch.Tensor,  # [B, T]
+    camera_rays: torch.Tensor,  # [B, T, 4, 3]
+    robot_to_cam_rot: torch.Tensor,  # [B, 3, 3]
+    robot_to_cam_t: torch.Tensor,  # [B, 3]
+    gyro: torch.Tensor,  # [B]
+    sign_change_error: float = SIGN_FLIP_CONST,
+    max_iter: int = MAX_ITER,
+    tag_size: float = TAG_SIZE,
+) -> RobotPoseResult:
+    """``solve_robot_pose`` with the robot->camera transform given as its
+    rotation and translation (one camera frame per batch element)."""
+    return solve_robot_pose(
+        tag_rotations, tag_translations, tag_mask, camera_rays,
+        SE3(robot_to_cam_rot, robot_to_cam_t), gyro,
+        sign_change_error=sign_change_error, max_iter=max_iter,
+        tag_size=tag_size)
+
+
+class SqPnP:
+    """Builder facade of the reference's ``SqPnP`` API:
+    ``SqPnP().max_iter(n).tolerance(t).solve_robot_pose(...)``. Stateless:
+    each builder call returns a new facade, each solve is one
+    ``solve_robot_pose`` call. The tolerance is kept for the API; the
+    solver's Newton loop runs its ``max_iter`` masked steps."""
+
+    def __init__(self, max_iter: int = MAX_ITER, tol: float = 1e-8):
+        self._max_iter = max_iter
+        self._tol = tol
+
+    def max_iter(self, n: int) -> "SqPnP":
+        return SqPnP(n, self._tol)
+
+    def tolerance(self, tol: float) -> "SqPnP":
+        return SqPnP(self._max_iter, tol)
+
+    def solve_robot_pose(self, tag_rotations, tag_translations, tag_mask,
+                         camera_rays, robot_to_cam: SE3, gyro,
+                         sign_change_error=SIGN_FLIP_CONST) -> RobotPoseResult:
+        return solve_robot_pose(
+            tag_rotations, tag_translations, tag_mask, camera_rays,
+            robot_to_cam, gyro, sign_change_error=sign_change_error,
+            max_iter=self._max_iter)

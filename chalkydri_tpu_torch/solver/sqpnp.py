@@ -22,6 +22,7 @@ from chalkydri_tpu_torch.ops.linalg import spd_solve, spd_solve_many
 
 MAX_ITER = 15
 TOL_SQ = 1e-16
+NUM_CANDIDATES = 6  # the JAX package's exported constant
 
 
 class SqPnPResult(NamedTuple):

@@ -14,6 +14,10 @@ onto a uniform gray frame with numpy (float64 geometry, bilinear sampling).
 ``tiny_rig`` and ``render_tiny`` are the dry run's scene: a three-tag
 layout of its own with two tags 0.6 m before the camera.
 
+``board_views`` renders views of the 6x6 aprilgrid (tag36h11 ids 0-35)
+through a lens with distortion, from random poses, for the calibration
+path.
+
 ``serpentine``, ``blob_tern`` and ``mixed_terns`` are ternary pages that
 stress the capped CCL rounds (kernels B1, B3 and B4), at the shapes
 ``CCL_STRESS_SHAPES``; the card run and the CPU tests against the JAX
@@ -226,3 +230,62 @@ def render_tiny(layout, rig_rc, n_frames: int, calib: dict | None = None,
     frame = render_scene(layout, rig_rc, *TINY_ROBOT, calib or TINY_CALIB,
                          tags=TINY_TAGS, cell_px=cell_px)
     return np.stack([frame] * n_frames)
+
+
+# The calibration path's lens (``tests/test_calibration.py``'s, centred on
+# a 1280x800 frame) and its views of the aprilgrid: 12 poses, the board
+# 0.40-0.55 m away and tilted up to ~35 degrees about each axis.
+CALIB_LENS = {"fx": 880.0, "fy": 870.0, "cx": 640.0, "cy": 400.0,
+              "k1": -0.12, "k2": 0.04, "p1": 0.001, "p2": -0.0008,
+              "k3": 0.0, "width": 1280, "height": 800}
+CALIB_VIEWS = 12
+CALIB_DISTANCE_M = (0.40, 0.55)
+CALIB_TILT_RAD = 0.6
+
+
+def board_views(n: int = CALIB_VIEWS, calib: dict = CALIB_LENS,
+                seed: int = 1, distance=CALIB_DISTANCE_M,
+                tilt: float = CALIB_TILT_RAD, cell_px: int = 16):
+    """``n`` views of the 6x6 aprilgrid of ``tools/calibration.py``:
+    ``(frames [n, H, W] uint8, rotations [n, 3, 3], translations [n, 3])``
+    with board -> camera poses drawn from ``seed``. The board faces the
+    camera upright (turned half a revolution about x, so its +y runs up
+    the image), tilted by Euler angles (extrinsic xyz) up to ``tilt``,
+    its centre ``distance`` m away and off the axis by up to 5 % of that.
+    Each tag's four corners go through the lens with its distortion; the
+    tag between them is warped by the homography of those corners."""
+    from scipy.spatial.transform import Rotation
+
+    from chalkydri_tpu_torch.detector.families import load_family, render_tag
+    from chalkydri_tpu_torch.geometry.camera import OpenCVModel5
+    from chalkydri_tpu_torch.tools.calibration import aprilgrid_board_corners
+
+    rng = np.random.default_rng(seed)
+    model = OpenCVModel5.from_dict(calib)
+    fam = load_family("tag36h11")
+    board = aprilgrid_board_corners()
+    ids = sorted(board)
+    pts = np.concatenate([board[t] for t in ids])  # [144, 3]
+    center = pts.mean(axis=0)
+    upright = np.diag([1.0, -1.0, -1.0])
+    h, w = int(calib["height"]), int(calib["width"])
+    frames, rots, ts = [], [], []
+    for _ in range(n):
+        rot = Rotation.from_euler("xyz", rng.uniform(-tilt, tilt, 3)
+                                  ).as_matrix() @ upright
+        z = rng.uniform(*distance)
+        t = np.array([rng.uniform(-0.05, 0.05) * z,
+                      rng.uniform(-0.05, 0.05) * z, z]) - rot @ center
+        pix, valid = model.project(torch.from_numpy(pts @ rot.T + t))
+        pix = pix.numpy().reshape(len(ids), 4, 2)
+        if not (bool(valid.all()) and (pix > 0).all()
+                and (pix[..., 0] < w - 1).all() and (pix[..., 1] < h - 1).all()):
+            raise AssertionError("the board leaves the frame")
+        canvas = np.full((h, w), 150, np.uint8)
+        for tid, corners in zip(ids, pix):
+            place_tag(canvas, render_tag(fam, tid, cell_px=cell_px), cell_px,
+                      corners)
+        frames.append(canvas)
+        rots.append(rot)
+        ts.append(t)
+    return np.stack(frames), np.stack(rots), np.stack(ts)

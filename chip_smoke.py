@@ -74,7 +74,26 @@
    thread while the loop runs); and runs ``python -m
    chalkydri_tpu_torch.main`` on ``examples/chalkydri.ron`` (synthetic
    cameras, packets to loopback), which must exit 0 and log frames of
-   both cameras.
+   both cameras;
+8. calibrates a camera on the card through the configurator
+   (``tools/configurator.py calibrate``, in-process): 12 views of the 6x6
+   aprilgrid rendered at 1280x800 through a lens with distortion
+   (``tools/scenes.py::board_views``), put in through the camera's
+   ``_cap``; every view must be accepted, the views must launch exactly
+   12 B1 and 12 B2 and no other kernel (counts set to 0 just before),
+   the recovered fx, fy, cx, cy must lie within ``CALIB_TOL_REL`` of the
+   truth, the RMS under ``CALIB_RMS_PX``, the stored calib JSON must
+   load back, and the card's solve must equal the CPU's on the same
+   features within ``CALIB_SOLVE_REL``; it prints the detect time a view
+   (CUDA events), the solve's time and accepted steps and the parameters
+   beside the truth;
+9. runs ``python -m chalkydri_tpu_torch.tools.logread replay`` on the
+   log ``main`` wrote (one JSON line per frame record, 20 a camera; the
+   ids of the first two frames equal the CPU detector's) and
+   ``python -m chalkydri_tpu_torch.tools.soak`` for 15 s on 2 synthetic
+   1280x800 cameras (at least 10 iterations, a packet received, every
+   latency span of the report, the projection the sum of its parts, the
+   staged batch's bytes).
 
 Every failed check raises (non-zero exit). The last three lines are a
 JSON kernel report, the ``nvidia-smi`` name and power limit line, and
@@ -112,6 +131,16 @@ APP_MOUNT_Y = (0.15, -0.15)  # m
 APP_POSE = (12.9, 3.99, 0.015)  # x m, y m, yaw rad (the gyro the robot sends)
 APP_GAP_EVERY = 7  # camera 1 has no fresh frame every 7th poll
 MAIN_ITERS = 20  # iterations of the ``main`` subprocess
+# The calibration path: fx, fy, cx, cy within 1 % of the truth and the RMS
+# under 0.25 px (the port on the CPU on the same 12 views: 0.44 % and
+# 0.182 px, PERF.md); the card's Gauss-Newton equal to the CPU's on the
+# same features within 1e-6 (relative, against max(|p|, 1e-3)).
+CALIB_TOL_REL, CALIB_RMS_PX, CALIB_SOLVE_REL = 1e-2, 0.25, 1e-6
+SOAK_SECONDS = 15
+# The latency spans of the soak report (the JAX package's schema).
+SOAK_SPANS = ("rtt_ms", "host_capture_ms", "h2d_put_ms", "h2d_deploy_ms",
+              "device_step_ms", "d2h_fetch_ms", "host_publish_ms",
+              "projection_p50_ms")
 
 # The least time the card could take (H100 SXM datasheet figures):
 # bytes over the memory rate, operations over the
@@ -1207,6 +1236,245 @@ def main_phase(card) -> None:
           f"{len(packets)} packets [{card}]", flush=True)
 
 
+class BoardFeed:
+    """The calibration views put in through ``camera._cap``: each poll
+    gives the next view once, stamped now, then nothing."""
+
+    def __init__(self, frames):
+        self.frames, self.given = frames, 0
+
+    def latest(self):
+        if self.given >= len(self.frames):
+            return None
+        self.given += 1
+        return self.frames[self.given - 1], time.monotonic_ns() // 1000
+
+    def close(self):
+        pass
+
+
+def calibration_phase(dev, card, counters) -> None:
+    """A camera calibrated through the configurator's ``calibrate``
+    command in-process, on the card, from 12 rendered aprilgrid views put
+    in through the camera's ``_cap``; then the detect and the solve timed
+    alone, and the solve held to the CPU's on the same features."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from chalkydri_tpu_torch.geometry.camera import OpenCVModel5
+    from chalkydri_tpu_torch.io.camera import CamPipeline
+    from chalkydri_tpu_torch.tools import calibration, configurator
+    from chalkydri_tpu_torch.tools.scenes import CALIB_LENS, board_views
+
+    frames, _, _ = board_views()
+    truth = np.array([CALIB_LENS[k] for k in ("fx", "fy", "cx", "cy", "k1",
+                                              "k2", "p1", "p2", "k3")])
+    out_dir = os.path.join(ROOT, "chalkydri_tpu_torch", "_build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    state = os.path.join(out_dir, "configurator.json")
+    if os.path.exists(state):
+        os.remove(state)
+    h, w = frames.shape[1:]
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = configurator.main(["--state", state, "configure", "--name",
+                                "calib", "--device", "absent-calib",
+                                "--width", str(w), "--height", str(h)])
+    if rc != 0:
+        raise AssertionError(f"calibration path: configure exited {rc}")
+
+    feed = BoardFeed(frames)
+    start = CamPipeline.start
+    CamPipeline.start = lambda self, clock: setattr(self, "_cap", feed)
+    log = io.StringIO()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = configurator.main(["--state", state, "calibrate",
+                                    str(len(frames)), "--name", "calib",
+                                    "--timeout", "60"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        CamPipeline.start = start
+    launches = {name: fn.launches for name, fn in counters.items()}
+    label = "calibration path"
+    got = re.search(r"rms=([0-9.]+)px over (\d+) frames", log.getvalue())
+    if rc != 0 or got is None or int(got.group(2)) != len(frames):
+        raise AssertionError(f"{label}: calibrate exited {rc}, "
+                             f"{feed.given} views given:\n{log.getvalue()}")
+    expect = {"threshold_ccl_extract": len(frames),
+              "segment_stats": len(frames)}
+    if launches != {k: expect.get(k, 0) for k in launches}:
+        raise AssertionError(f"{label}: kernel launches {launches} for "
+                             f"{len(frames)} views")
+    entry = configurator.ConfiguratorState.load(state).entry("calib")
+    stored = OpenCVModel5.from_json(entry.calib).params.numpy()
+    err = np.abs(stored[:4] - truth[:4]) / truth[:4]
+    if not (err <= CALIB_TOL_REL).all():
+        raise AssertionError(f"{label}: fx fy cx cy {stored[:4]} against "
+                             f"{truth[:4]}: relative {err}")
+
+    # The same views again, timed: the detect a view (CUDA events around
+    # Calibrator.process_frame, its one copy to the host included), then
+    # the solve on the card and on the CPU from the same features.
+    cal = calibration.Calibrator(device=dev)
+    cal.process_frame(frames[0])
+    cal.features.clear()
+    det_ms, dropped = [], 0
+    for f in frames:
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        if not cal.process_frame(f):
+            raise AssertionError(f"{label}: a view was rejected when timed")
+        end_ev.record()
+        end_ev.synchronize()
+        det_ms.append(start_ev.elapsed_time(end_ev))
+    dropped = int(cal._detector(torch.from_numpy(frames).to(dev))
+                  .dropped_points.max())
+    if dropped:
+        raise AssertionError(f"{label}: {dropped} candidates dropped")
+    # the solve's host init alone: Zhang's K, then each view's pose
+    t0 = time.perf_counter()
+    feats = cal.features
+    k0 = calibration._zhang_init(feats)
+    kmat = np.array([[k0[0], 0, k0[2]], [0, k0[1], k0[3]], [0, 0, 1]])
+    for feat in feats:
+        r, _ = calibration._pose_from_homography(
+            kmat, calibration._homography(feat.points_3d, feat.points_2d))
+        calibration._rvec_from_matrix(r)
+    init_ms = (time.perf_counter() - t0) * 1e3
+    solve_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = calibration.calibrate_camera(feats, device=dev)
+        torch.cuda.synchronize()
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    res_cpu = calibration.calibrate_camera(feats, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    rel = (np.abs(res.params - res_cpu.params)
+           / np.maximum(np.abs(res_cpu.params), 1e-3))
+    if not (rel.max() <= CALIB_SOLVE_REL
+            and abs(res.rms_px - res_cpu.rms_px)
+            <= CALIB_SOLVE_REL * max(res_cpu.rms_px, 1e-3)):
+        raise AssertionError(f"{label}: card solve {res.params} "
+                             f"(rms {res.rms_px}) against the CPU's "
+                             f"{res_cpu.params} (rms {res_cpu.rms_px})")
+    if not (res.rms_px < CALIB_RMS_PX and np.array_equal(
+            np.abs(res.params[:4] - truth[:4]) / truth[:4] <= CALIB_TOL_REL,
+            [True] * 4)):
+        raise AssertionError(f"{label}: rms {res.rms_px}, params "
+                             f"{res.params}")
+    names = ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2", "k3")
+    print(f"{label}: configurator calibrate on {len(frames)} views of the "
+          f"6x6 aprilgrid ({w}x{h}) exited 0 in {wall:.2f} s, "
+          f"{got.group(2)} views accepted, rms {res.rms_px:.4f} px, "
+          f"launches {launches} (one B1, one B2 a view), candidates "
+          f"dropped 0; stored calib JSON loads back [{card}]", flush=True)
+    print(f"{label}: detect a view (CUDA events, one copy back) median "
+          f"{statistics.median(det_ms):.3f} ms (min {min(det_ms):.3f}, max "
+          f"{max(det_ms):.3f}); calibrate_camera on the card (F = "
+          f"{res.n_frames}, Jacobian {2 * 144 * res.n_frames} x "
+          f"{9 + 6 * res.n_frames}, 30 iterations, {res.steps_accepted} "
+          f"steps accepted) {solve_ms[0]:.1f} / {solve_ms[1]:.1f} / "
+          f"{solve_ms[2]:.1f} ms, of which the host init (Zhang, the "
+          f"views' poses) takes {init_ms:.1f} ms alone; on the CPU "
+          f"{cpu_ms:.1f} ms; "
+          f"card equals CPU within {rel.max():.2e} relative [{card}]",
+          flush=True)
+    print(f"{label}: recovered / truth: " + ", ".join(
+        f"{n} {g:.5g} / {t:.5g}" for n, g, t in zip(names, res.params,
+                                                    truth))
+          + f"; Zhang init fx {k0[0]:.5g}", flush=True)
+
+
+def logread_phase(card) -> None:
+    """``python -m chalkydri_tpu_torch.tools.logread replay`` on the log
+    ``main`` wrote: one JSON line per frame record, the first two frames'
+    ids equal the CPU detector's."""
+    import torch
+
+    from chalkydri_tpu_torch.detector.pipeline import make_detector
+    from chalkydri_tpu_torch.runtime import replay_frames
+
+    log = os.path.join(ROOT, "chalkydri_tpu_torch", "_build", "smoke",
+                       "main.ctlog")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "chalkydri_tpu_torch.tools.logread",
+         "replay", log], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"logread replay exited {r.returncode}:\n"
+                             f"{r.stderr[-4000:]}")
+    lines = [json.loads(x) for x in r.stdout.splitlines() if x.strip()]
+    per_cam = {}
+    for rec in lines:
+        per_cam[rec["cam"]] = per_cam.get(rec["cam"], 0) + 1
+    if per_cam != {0: MAIN_ITERS, 1: MAIN_ITERS}:
+        raise AssertionError(f"logread replay: lines per camera {per_cam}")
+    detect = make_detector(device="cpu")
+    for i, (_, _, frame) in zip(range(2), replay_frames(log)):
+        h = (frame.shape[0] + 7) // 8 * 8
+        w = (frame.shape[1] + 7) // 8 * 8
+        buf = np.full((h, w), 127, np.uint8)
+        buf[: frame.shape[0], : frame.shape[1]] = frame
+        ids = [int(x) for x in detect(torch.from_numpy(buf)[None]).ids[0]
+               if x >= 0]
+        if ids != lines[i]["ids"]:
+            raise AssertionError(f"logread replay: frame {i} ids "
+                                 f"{lines[i]['ids']}, CPU detector {ids}")
+    rate = r.stderr.strip().splitlines()[-1]
+    print(f"logread replay: python -m chalkydri_tpu_torch.tools.logread "
+          f"replay main.ctlog exited 0 in {wall:.1f} s, lines per camera "
+          f"{per_cam}, first two frames' ids {lines[0]['ids']} "
+          f"{lines[1]['ids']} equal the CPU detector's; {rate} [{card}]",
+          flush=True)
+
+
+def soak_phase(card) -> None:
+    """``python -m chalkydri_tpu_torch.tools.soak`` on 2 synthetic
+    1280x800 cameras for SOAK_SECONDS: its report's gates and numbers."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "chalkydri_tpu_torch.tools.soak", "--seconds",
+         str(SOAK_SECONDS), "--cams", "2", "--width", "1280", "--height",
+         "800", "--json"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"soak exited {r.returncode}:\n"
+                             f"{r.stderr[-4000:]}")
+    rep = json.loads(r.stdout.strip().splitlines()[-1])
+    spans = rep["latency_spans"]
+    missing = [k for k in SOAK_SPANS if k not in spans]
+    parts = (spans.get("host_capture_ms", 0) + spans.get("h2d_deploy_ms", 0)
+             + spans.get("device_step_ms", 0) + spans.get("d2h_fetch_ms", 0)
+             + spans.get("host_publish_ms", 0))
+    if (rep["iterations"] < 10 or rep["packets_rx"] < 1 or missing
+            or abs(spans["projection_p50_ms"] - parts) >= 0.01
+            or spans["h2d_bytes"] != 2 * 800 * 1280):
+        raise AssertionError(f"soak: report {json.dumps(rep)}")
+    print(f"soak: python -m chalkydri_tpu_torch.tools.soak --seconds "
+          f"{SOAK_SECONDS} --cams 2 --width 1280 --height 800 exited 0 in "
+          f"{wall:.1f} s: {rep['iterations']} iterations, sustained_hz "
+          f"{rep['sustained_hz']}, iteration ms p50/p99 {rep['iter_ms_p50']}"
+          f"/{rep['iter_ms_p99']}, capture_to_udp_ms p50/p99 "
+          f"{rep['capture_to_udp_ms_p50']}/{rep['capture_to_udp_ms_p99']}, "
+          f"packets {rep['packets_rx']}, rss drift {rep['rss_drift_mb']} MB, "
+          f"device memory drift {rep['device_mb_drift']} MB [{card}]",
+          flush=True)
+    print("soak latency spans: " + ", ".join(
+        f"{k} {v}" for k, v in spans.items()) + f" [{card}]", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -1450,6 +1718,18 @@ def main() -> None:
     main_phase(card)
     print(f"app and main phases: {time.perf_counter() - t_app:.1f} s",
           flush=True)
+
+    # -- calibration, logread replay, soak ----------------------------------
+    t_tools = time.perf_counter()
+    calibration_phase(dev, card, counters)
+    for fn in counters.values():
+        fn.launches = 0
+    logread_phase(card)
+    for fn in counters.values():
+        fn.launches = 0
+    soak_phase(card)
+    print(f"calibration, logread and soak phases: "
+          f"{time.perf_counter() - t_tools:.1f} s", flush=True)
 
     pages = 3 * 4 * 2  # three int32 candidate pages per direction pair
     report = [
