@@ -59,7 +59,14 @@
 6. checks the options: the bench scene as YUYV gives the GREY step's ids
    and poses, and a flooded frame with a small ``max_edge_points`` drives
    ``capacity_fallback`` to its second program;
-7. drives the runtime App (``runtime.app.App``) at the deployed rig: two
+7. runs ``bench.py``'s twin (``chalkydri_tpu_torch/bench.py``) on
+   ``bench.py``'s scene and rig (4 x 1280x800, tags 1/5/9/13, stored in
+   ``tools/bench_scene.npz`` with the JAX package's outputs): its CPU
+   denominator, then ``bench_gpu`` at ``BENCH_ITERS`` x ``BENCH_REPS``
+   with the launch counts set to 0 just before (exactly one B1 and one B2
+   a step, no other kernel), the card's output held to the stored JAX
+   outputs; prints the twin's JSON line;
+8. drives the runtime App (``runtime.app.App``) at the deployed rig: two
    1600x1304 cameras on mounts 0.3 m apart seeing tags 28-31 from one
    robot pose, frames put in through each chain's ``camera._cap``, the
    gyro sent to the App's whacknet ``Comm`` as the roboRIO's 8-byte
@@ -75,7 +82,7 @@
    chalkydri_tpu_torch.main`` on ``examples/chalkydri.ron`` (synthetic
    cameras, packets to loopback), which must exit 0 and log frames of
    both cameras;
-8. calibrates a camera on the card through the configurator
+9. calibrates a camera on the card through the configurator
    (``tools/configurator.py calibrate``, in-process): 12 views of the 6x6
    aprilgrid rendered at 1280x800 through a lens with distortion
    (``tools/scenes.py::board_views``), put in through the camera's
@@ -87,13 +94,13 @@
    features within ``CALIB_SOLVE_REL``; it prints the detect time a view
    (CUDA events), the solve's time and accepted steps and the parameters
    beside the truth;
-9. runs ``python -m chalkydri_tpu_torch.tools.logread replay`` on the
-   log ``main`` wrote (one JSON line per frame record, 20 a camera; the
-   ids of the first two frames equal the CPU detector's) and
-   ``python -m chalkydri_tpu_torch.tools.soak`` for 15 s on 2 synthetic
-   1280x800 cameras (at least 10 iterations, a packet received, every
-   latency span of the report, the projection the sum of its parts, the
-   staged batch's bytes).
+10. runs ``python -m chalkydri_tpu_torch.tools.logread replay`` on the
+    log ``main`` wrote (one JSON line per frame record, 20 a camera; the
+    ids of the first two frames equal the CPU detector's) and
+    ``python -m chalkydri_tpu_torch.tools.soak`` for 15 s on 2 synthetic
+    1280x800 cameras (at least 10 iterations, a packet received, every
+    latency span of the report, the projection the sum of its parts, the
+    staged batch's bytes).
 
 Every failed check raises (non-zero exit). The last three lines are a
 JSON kernel report, the ``nvidia-smi`` name and power limit line, and
@@ -131,6 +138,9 @@ APP_MOUNT_Y = (0.15, -0.15)  # m
 APP_POSE = (12.9, 3.99, 0.015)  # x m, y m, yaw rad (the gyro the robot sends)
 APP_GAP_EVERY = 7  # camera 1 has no fresh frame every 7th poll
 MAIN_ITERS = 20  # iterations of the ``main`` subprocess
+# The bench twin's rounds here (``python -m chalkydri_tpu_torch.bench``
+# runs 3 rounds of 400 steps).
+BENCH_ITERS, BENCH_REPS = 20, 3
 # The calibration path: fx, fy, cx, cy within 1 % of the truth and the RMS
 # under 0.25 px (the port on the CPU on the same 12 views: 0.44 % and
 # 0.182 px, PERF.md); the card's Gauss-Newton equal to the CPU's on the
@@ -1236,6 +1246,44 @@ def main_phase(card) -> None:
           f"{len(packets)} packets [{card}]", flush=True)
 
 
+def bench_phase(dev, card, counters) -> None:
+    """``bench.py``'s twin (``chalkydri_tpu_torch/bench.py``) at
+    ``BENCH_ITERS`` x ``BENCH_REPS``: its CPU denominator, then
+    ``bench_gpu`` on the card with the launch counts set to 0 just before
+    and read just after (one B1 and one B2 a step, on B1's cluster route,
+    and no other kernel); the card's and the CPU's outputs held to the
+    JAX outputs stored in ``tools/bench_scene.npz`` as the twin's ``main``
+    holds them; prints the twin's JSON line."""
+    from chalkydri_tpu_torch import bench as twin
+
+    ref = twin.load_reference()
+    frames = np.broadcast_to(ref["frame"], (twin.BATCH, twin.H, twin.W)).copy()
+    cpu_fps, cpu_samples, cpu_out, cpu_ref = twin.bench_cpu_reference(frames)
+    twin.check_outputs(cpu_out, ref, "bench path, cpu step")
+    for fn in counters.values():
+        fn.launches = 0
+    counters["threshold_ccl_extract"].chain_launches = 0
+    res = twin.bench_gpu(frames, BENCH_ITERS, BENCH_REPS, device=dev)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    steps = 1 + BENCH_ITERS * BENCH_REPS
+    want = {name: steps if name in ("threshold_ccl_extract", "segment_stats")
+            else 0 for name in counters}
+    if launches != want or counters["threshold_ccl_extract"].chain_launches:
+        raise AssertionError(f"bench path: kernel launches {launches} over "
+                             f"{steps} steps, expected {want} on B1's cluster "
+                             f"route")
+    twin.check_outputs(res.out, ref, "bench path, card step")
+    print(f"bench path (bench.py's scene, {twin.BATCH} x {twin.W}x{twin.H}, "
+          f"tags 1/5/9/13): {steps} steps, kernel launches {launches}; ids "
+          f"{res.out.detections.ids[0][res.out.detections.valid[0]].tolist()}"
+          f", pose ({float(res.out.pose_x[0]):.6f}, "
+          f"{float(res.out.pose_y[0]):.6f}), card and CPU outputs equal to "
+          f"the stored JAX outputs within {CORNER_TOL}; step ms per round "
+          f"{[round(t, 3) for t in res.step_ms]} [{card}]", flush=True)
+    print(json.dumps(twin.result_line(res, cpu_fps, cpu_samples, cpu_ref,
+                                      card)), flush=True)
+
+
 class BoardFeed:
     """The calibration views put in through ``camera._cap``: each poll
     gives the next view once, stamped now, then nothing."""
@@ -1711,6 +1759,11 @@ def main() -> None:
           f"4,096 -> second program (8,192) dropped "
           f"{int(out.dropped_points.max())}, ids "
           f"{out.ids[0][out.valid[0]].tolist()}", flush=True)
+
+    # -- bench.py's twin -----------------------------------------------------
+    t_bench = time.perf_counter()
+    bench_phase(dev, card, counters)
+    print(f"bench phase: {time.perf_counter() - t_bench:.1f} s", flush=True)
 
     # -- the runtime App and main ------------------------------------------
     t_app = time.perf_counter()

@@ -301,9 +301,13 @@ def test_port_imports_no_jax():
         "import sys, pkgutil, importlib, chalkydri_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'chalkydri_tpu_torch.bench' in sys.modules, 'bench twin'\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(k.startswith('chalkydri_tpu.') or k == 'chalkydri_tpu'"
         " for k in sys.modules), 'JAX package imported'\n"
+        "assert 'cv2' not in sys.modules, 'cv2 imported'\n"
+        "assert not any(k == 'tests' or k.startswith('tests.')"
+        " for k in sys.modules), 'tests imported'\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
