@@ -21,7 +21,15 @@
 //
 //   label      the component's raster-first pixel, as its padded-flat
 //              index ry * wp + rx (kInvalid on skip pixels);
-//   propagate  the MINIMUM caller label over the component.
+//   propagate  the MINIMUM caller label over the component, for the
+//              frames whose `active` flag is set (all when `active` is
+//              null); an inactive frame's `out` is a copy of its
+//              `labels`. The row-banded step runs a fixed number of seam
+//              rounds, all on the card, each gated by a per-frame flag
+//              that says whether the frame's seam rows changed (the JAX
+//              package's psum-gated while_loop, without a host read): a
+//              frame whose seams stopped changing is at its fixed point,
+//              and its later rounds only copy.
 //
 // Two routes, picked by the wrapper from (B, H, W) alone
 // (ops/propagate.py::band_cluster_size):
@@ -97,7 +105,8 @@
 // merge's global atomics and walks over scattered parents. Prediction for
 // the cluster route: 1 launch, 10-30 us (label) and 15-40 us (propagate);
 // measured: 1 launch, 35.4 and 40.9 us (chip_smoke.py's B6 lines on an
-// NVIDIA H100 80GB HBM3 at 700 W).
+// NVIDIA H100 80GB HBM3 at 700 W). A propagate call with no frame active
+// (its CTAs copy 4.2 MB): 5.0-5.4 us of device time on the same card.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -116,21 +125,29 @@ using ccl::kInvalid;
 // unions with its connected backward neighbors, then each pixel walks to
 // its root. Walks and unions halve the paths they pass.
 
+// Whether frame b is to be propagated (`active` null: every frame).
+__device__ __forceinline__ bool frame_active(const int32_t* active, int b) {
+  return active == nullptr || __ldg(active + b) != 0;
+}
+
 __global__ void init_parent_kernel(int B, int H, int W,
+                                   const int32_t* __restrict__ active,
                                    int32_t* __restrict__ parent) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * H * W) return;
+  if (i >= B * H * W || !frame_active(active, i / (H * W))) return;
   parent[i] = i % (H * W);
 }
 
 // Unions over the backward neighbors: left, and the row above by
 // ccl::links_up.
 __global__ void merge_kernel(const uint8_t* __restrict__ tern, int B, int H,
-                             int W, int32_t* parent) {
+                             int W, const int32_t* __restrict__ active,
+                             int32_t* parent) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * H * W) return;
   const int hw = H * W;
   const int b = i / hw, p = i % hw;
+  if (!frame_active(active, b)) return;
   const int x = p % W;
   const uint8_t* f = tern + (size_t)b * hw;
   const ccl::GlobalPage pg{parent + (size_t)b * hw};
@@ -144,13 +161,14 @@ __global__ void merge_kernel(const uint8_t* __restrict__ tern, int B, int H,
 }
 
 // tern [B, H, W] u8 -> parent [B, H, W] int32 with every component's
-// pixels under its minimum-index root. Returns the launch error code.
-int union_find(const uint8_t* tern, int B, int H, int W, int32_t* parent,
-               cudaStream_t s) {
+// pixels under its minimum-index root, in the frames that `active` sets
+// (null: all). Returns the launch error code.
+int union_find(const uint8_t* tern, int B, int H, int W,
+               const int32_t* active, int32_t* parent, cudaStream_t s) {
   const int grid = ccl::blocks_for(B * H * W);
-  init_parent_kernel<<<grid, ccl::kThreads, 0, s>>>(B, H, W, parent);
+  init_parent_kernel<<<grid, ccl::kThreads, 0, s>>>(B, H, W, active, parent);
   CCL_CHECK_LAUNCH();
-  merge_kernel<<<grid, ccl::kThreads, 0, s>>>(tern, B, H, W, parent);
+  merge_kernel<<<grid, ccl::kThreads, 0, s>>>(tern, B, H, W, active, parent);
   CCL_CHECK_LAUNCH();
   return 0;
 }
@@ -173,38 +191,51 @@ __global__ void root_label_kernel(const uint8_t* __restrict__ tern,
   labels[i] = (r / W) * wp + r % W;
 }
 
-__global__ void fill_kernel(int n, int32_t value, int32_t* __restrict__ dst) {
+// dst[i] = value over the active frames' [B, H, W] entries.
+__global__ void fill_kernel(int B, int H, int W,
+                            const int32_t* __restrict__ active,
+                            int32_t value, int32_t* __restrict__ dst) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) dst[i] = value;
+  if (i < B * H * W && frame_active(active, i / (H * W))) dst[i] = value;
 }
 
 // rootval[root(p)] = min over the component of labels[p].
 __global__ void root_min_kernel(const uint8_t* __restrict__ tern,
                                 int32_t* parent,
                                 const int32_t* __restrict__ labels, int B,
-                                int H, int W, int32_t* rootval) {
+                                int H, int W,
+                                const int32_t* __restrict__ active,
+                                int32_t* rootval) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * H * W) return;
-  if (tern[i] == 127) return;
   const int hw = H * W;
   const int b = i / hw, p = i % hw;
+  if (!frame_active(active, b) || tern[i] == 127) return;
   const int r =
       ccl::find_halving(ccl::GlobalPage{parent + (size_t)b * hw}, p);
   atomicMin(rootval + (size_t)b * hw + r, labels[i]);
 }
 
+// out[p] = rootval[root(p)]; an inactive frame's out[p] = labels[p].
 __global__ void root_value_kernel(const uint8_t* __restrict__ tern,
                                   int32_t* parent,
-                                  const int32_t* __restrict__ rootval, int B,
-                                  int H, int W, int32_t* __restrict__ out) {
+                                  const int32_t* __restrict__ rootval,
+                                  const int32_t* __restrict__ labels, int B,
+                                  int H, int W,
+                                  const int32_t* __restrict__ active,
+                                  int32_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * H * W) return;
+  const int hw = H * W;
+  const int b = i / hw, p = i % hw;
+  if (!frame_active(active, b)) {
+    out[i] = __ldg(labels + i);
+    return;
+  }
   if (tern[i] == 127) {
     out[i] = kInvalid;
     return;
   }
-  const int hw = H * W;
-  const int b = i / hw, p = i % hw;
   out[i] = rootval[(size_t)b * hw +
                    ccl::find_halving(ccl::GlobalPage{parent + (size_t)b * hw},
                                      p)];
@@ -270,19 +301,46 @@ struct ClusterPage {
 
 // One frame per cluster of C = gridDim.x / B CTAs, kThreads each, R rows a
 // CTA (the last CTAs may hold fewer, or none); dynamic shared memory as
-// cluster_bytes. kPropagate: the propagate entry (labels -> out); else
-// the label entry (out = padded-flat root index, row pitch wp). kVec:
-// 16-byte stores of `out` (W % 4 == 0, `out` 16-byte aligned).
+// cluster_bytes. kPropagate: the propagate entry (labels -> out, in the
+// frames `active` sets; null: all); else the label entry (out =
+// padded-flat root index, row pitch wp). kVec: 16-byte stores of `out`
+// (W % 4 == 0, `out` 16-byte aligned).
 template <bool kPropagate, bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
     cluster_kernel(const uint8_t* __restrict__ tern,
-                   const int32_t* __restrict__ labels, int H, int W, int wp,
+                   const int32_t* __restrict__ labels,
+                   const int32_t* __restrict__ active, int H, int W, int wp,
                    int R, int32_t* __restrict__ out) {
   extern __shared__ __align__(16) int32_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int k = (int)cluster.block_rank();
   const int b = blockIdx.x / C;
+  const int y0 = min(k * R, H), y1 = min(y0 + R, H);
+  const int n = (y1 - y0) * W;
+  const int base = y0 * W;
+  const size_t frame = (size_t)b * H * W;
+  int32_t* o = out + frame;
+
+  // An inactive frame: each CTA copies its rows of `labels` into `out`
+  // and leaves. Every CTA of the cluster reads the same flag, so none
+  // waits at a cluster barrier that another skips, and no CTA touches
+  // another's shared memory. `out` never aliases `labels`, and a CUDA
+  // graph replays into the same buffers, so the copy is what keeps the
+  // next round's input current.
+  if (kPropagate && active != nullptr && __ldg(active + b) == 0) {
+    const int32_t* src = labels + frame + base;
+    int done = 0;
+    if (kVec && (uintptr_t)src % 16 == 0) {
+      for (int j = threadIdx.x; j < n / 4; j += kThreads)
+        ((int4*)(o + base))[j] = __ldg((const int4*)src + j);
+      done = n / 4 * 4;
+    }
+    for (int j = done + threadIdx.x; j < n; j += kThreads)
+      o[base + j] = __ldg(src + j);
+    return;
+  }
+
   const int per_cta = R * W, chunks_max = (per_cta + 31) / 32;
   int32_t* par = smem;
   uint32_t* bits = (uint32_t*)(smem + per_cta);  // a word a chunk
@@ -292,16 +350,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   int32_t* queue = warp_max + kWarps;  // [kWarps][2][ccl::kUnionQueue]
   // the tern bytes: the row above, then the CTA's rows
   uint8_t* tsm = (uint8_t*)smem + (4 * cluster_ints(R, W) + 15) / 16 * 16;
-  const int y0 = min(k * R, H), y1 = min(y0 + R, H);
-  const int n = (y1 - y0) * W, chunks = (n + 31) / 32;
-  const int base = y0 * W;
+  const int chunks = (n + 31) / 32;
   const ccl::SharedPage local{par, base};
   const ClusterPage all{par, per_cta};
   const Cols cols{W, 1.0f / (float)W};
   const uint8_t* t = tsm + W;  // t[i]: pixel base + i
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t frame = (size_t)b * H * W;
-  int32_t* o = out + frame;
 
   // 0. stage the tern bytes (16-byte loads where the rows are aligned)
   {
@@ -507,8 +561,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <bool kPropagate, bool kVec>
-int launch_band(const uint8_t* tern, const int32_t* labels, int B, int H,
-                int W, int wp, int C, int32_t* out, cudaStream_t stream) {
+int launch_band(const uint8_t* tern, const int32_t* labels,
+                const int32_t* active, int B, int H, int W, int wp, int C,
+                int32_t* out, cudaStream_t stream) {
   if (B < 1 || C < 1 || C > kMaxCluster || W < 1 || H < 1 ||
       (size_t)H * W > (1u << 24) || (size_t)B * H * W >= (1u << 31))
     return (int)cudaErrorInvalidValue;
@@ -516,7 +571,7 @@ int launch_band(const uint8_t* tern, const int32_t* labels, int B, int H,
   static ccl::ClusterCheck checks[64];  // this instantiation's, per card
   return ccl::launch_cluster(cluster_kernel<kPropagate, kVec>, B * C, C,
                              kThreads, cluster_bytes(R, W), stream, checks,
-                             tern, labels, H, W, wp, R, out);
+                             tern, labels, active, H, W, wp, R, out);
 }
 
 bool vec_stores(int W, const int32_t* out) {
@@ -538,26 +593,30 @@ extern "C" int chalkydri_label_components_cluster(const uint8_t* tern, int B,
                                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return vec_stores(W, labels)
-             ? launch_band<false, true>(tern, nullptr, B, H, W, wp, C,
-                                           labels, s)
-             : launch_band<false, false>(tern, nullptr, B, H, W, wp, C,
-                                            labels, s);
+             ? launch_band<false, true>(tern, nullptr, nullptr, B, H, W, wp,
+                                           C, labels, s)
+             : launch_band<false, false>(tern, nullptr, nullptr, B, H, W, wp,
+                                            C, labels, s);
 }
 
 // The cluster route, propagate entry: tern [B, H, W] u8 and labels
 // [B, H, W] int32 (kInvalid on skip pixels) -> out [B, H, W] int32: every
-// pixel gets the minimum label of its component, in one launch; no
+// pixel of a frame whose active[b] is non-zero gets the minimum label of
+// its component, every pixel of another frame its own label (`active`
+// [B] int32 on the card, or null: every frame active), in one launch; no
 // scratch. `out` may not alias `labels`. Returns as the label entry.
 extern "C" int chalkydri_propagate_components_cluster(const uint8_t* tern,
                                                       const int32_t* labels,
+                                                      const int32_t* active,
                                                       int B, int H, int W,
                                                       int C, int32_t* out,
                                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return vec_stores(W, out)
-             ? launch_band<true, true>(tern, labels, B, H, W, 0, C, out, s)
-             : launch_band<true, false>(tern, labels, B, H, W, 0, C, out,
-                                           s);
+             ? launch_band<true, true>(tern, labels, active, B, H, W, 0, C,
+                                          out, s)
+             : launch_band<true, false>(tern, labels, active, B, H, W, 0, C,
+                                           out, s);
 }
 
 // The large-frame route, label entry: as the cluster route, with scratch
@@ -569,7 +628,7 @@ extern "C" int chalkydri_label_components_exact(const uint8_t* tern, int B,
                                                 int32_t* labels,
                                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int rc = union_find(tern, B, H, W, parent, s);
+  const int rc = union_find(tern, B, H, W, nullptr, parent, s);
   if (rc) return rc;
   root_label_kernel<<<ccl::blocks_for(B * H * W), ccl::kThreads, 0, s>>>(
       tern, parent, B, H, W, wp, labels);
@@ -577,25 +636,29 @@ extern "C" int chalkydri_label_components_exact(const uint8_t* tern, int B,
   return 0;
 }
 
-// The large-frame route, propagate entry: as the cluster route, with
-// scratch parent, rootval [B, H, W] int32, in five launches.
+// The large-frame route, propagate entry: as the cluster route (`active`
+// included), with scratch parent, rootval [B, H, W] int32, in five
+// launches; for an inactive frame the first four return at once and the
+// last copies its labels into `out`.
 extern "C" int chalkydri_propagate_components(const uint8_t* tern,
-                                              const int32_t* labels, int B,
+                                              const int32_t* labels,
+                                              const int32_t* active, int B,
                                               int H, int W, int32_t* parent,
                                               int32_t* rootval, int32_t* out,
                                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int rc = union_find(tern, B, H, W, parent, s);
+  const int rc = union_find(tern, B, H, W, active, parent, s);
   if (rc) return rc;
-  const int n = B * H * W;
-  const int grid = ccl::blocks_for(n);
-  fill_kernel<<<grid, ccl::kThreads, 0, s>>>(n, kInvalid, rootval);
+  const int grid = ccl::blocks_for(B * H * W);
+  fill_kernel<<<grid, ccl::kThreads, 0, s>>>(B, H, W, active, kInvalid,
+                                             rootval);
   CCL_CHECK_LAUNCH();
   root_min_kernel<<<grid, ccl::kThreads, 0, s>>>(tern, parent, labels, B, H,
-                                                 W, rootval);
+                                                 W, active, rootval);
   CCL_CHECK_LAUNCH();
-  root_value_kernel<<<grid, ccl::kThreads, 0, s>>>(tern, parent, rootval, B,
-                                                   H, W, out);
+  root_value_kernel<<<grid, ccl::kThreads, 0, s>>>(tern, parent, rootval,
+                                                   labels, B, H, W, active,
+                                                   out);
   CCL_CHECK_LAUNCH();
   return 0;
 }

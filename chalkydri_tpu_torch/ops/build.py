@@ -53,12 +53,12 @@ _SIGNATURES = {
     "chalkydri_threshold_ccl_exact": [_P, _I, _I, _I, _I, _I] + [_P] * 4,
     # tern, B, H, W, wp, C, labels, stream
     "chalkydri_label_components_cluster": [_P] + [_I] * 5 + [_P] * 2,
-    # tern, labels, B, H, W, C, out, stream
-    "chalkydri_propagate_components_cluster": [_P, _P] + [_I] * 4 + [_P] * 2,
+    # tern, labels, active, B, H, W, C, out, stream
+    "chalkydri_propagate_components_cluster": [_P] * 3 + [_I] * 4 + [_P] * 2,
     # tern, B, H, W, wp, parent, labels, stream
     "chalkydri_label_components_exact": [_P, _I, _I, _I, _I] + [_P] * 3,
-    # tern, labels, B, H, W, parent, rootval, out, stream
-    "chalkydri_propagate_components": [_P, _P, _I, _I, _I] + [_P] * 4,
+    # tern, labels, active, B, H, W, parent, rootval, out, stream
+    "chalkydri_propagate_components": [_P] * 3 + [_I] * 3 + [_P] * 4,
     # tern, labels, B, Hext, W, halo_top, halo_bottom, y_offset, black,
     # white, payload, stream
     "chalkydri_extract_band": [_P, _P, _I, _I, _I, _I, _I, _I] + [_P] * 4,

@@ -10,7 +10,9 @@ _blocked_propagate`` as the JAX package reaches it:
 - ``propagate_components_blocked`` (``propagate_components_blocked``): tern
   + labels the caller provides -> every pixel gets the minimum caller
   label of its component. The row-banded detector calls it between seam
-  exchanges with globally offset labels.
+  exchanges with globally offset labels, gated per frame by ``active``
+  ([B] int32 on the card: a frame whose flag is 0 gets its labels back
+  unchanged), so that a fixed number of rounds runs with no host read.
 
 The TPU kernels block rows to fit VMEM, run ``iters`` rounds per block and
 merge block seams for up to ``merge_rounds`` rounds; on this card a
@@ -126,40 +128,74 @@ label_components_blocked.global_launches = 0  # of them, the large frames'
 
 def propagate_components_blocked_plain(tern: torch.Tensor,
                                        labels: torch.Tensor,
-                                       want_converged: bool = False):
-    """Plain PyTorch version of ``propagate_components_blocked``."""
-    return _with_certificate(label_components_exact(tern, labels0=labels),
-                             want_converged)
+                                       want_converged: bool = False,
+                                       active: torch.Tensor | None = None):
+    """Plain PyTorch version of ``propagate_components_blocked``: the
+    propagation where ``active`` is set, ``labels`` where it is not."""
+    out = label_components_exact(tern, labels0=labels)
+    if active is not None:
+        out = torch.where(active.to(torch.bool)[:, None, None], out,
+                          labels.to(torch.int32))
+    return _with_certificate(out, want_converged)
 
 
-def propagate_components_blocked(tern: torch.Tensor, labels: torch.Tensor,
-                                 want_converged: bool = False):
-    """tern [B, H, W] uint8 and labels [B, H, W] int32 (non-negative,
-    ``INVALID`` on skip pixels) -> [B, H, W] int32, every pixel with the
-    minimum label of its component; with ``want_converged`` also the
-    certificate, constant true. CUDA tensors launch the kernel; CPU tensors
-    take the plain twin."""
-    if tern.device.type == "cpu":
-        return propagate_components_blocked_plain(tern, labels, want_converged)
+def _check_propagate_inputs(tern, labels, active) -> None:
     check_frames(tern, "propagate_components_blocked", tiles=False)
     if (labels.device != tern.device or labels.dtype != torch.int32
             or labels.shape != tern.shape or not labels.is_contiguous()):
         raise ValueError("propagate_components_blocked: labels must be "
                          "contiguous int32 of tern's shape, on its device")
+    if active is not None and (
+            active.device != tern.device or active.dtype != torch.int32
+            or active.shape != tern.shape[:1] or not active.is_contiguous()):
+        raise ValueError("propagate_components_blocked: active must be "
+                         "contiguous int32 [B], on tern's device")
+
+
+def propagate_components_global(tern: torch.Tensor, labels: torch.Tensor,
+                                active: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """The large-frame route of ``propagate_components_blocked`` at any
+    shape (CUDA tensors only; five launches, not counted): the wrapper
+    takes it for frames over the cluster route's budget, and
+    ``chip_smoke.py`` holds it to the plain twin at the band shapes."""
+    _check_propagate_inputs(tern, labels, active)
     b, h, w = tern.shape
     out = build.empty((b, h, w), torch.int32, tern)
+    parent = build.empty((b, h, w), torch.int32, tern)
+    rootval = build.empty((b, h, w), torch.int32, tern)
+    build.launch("chalkydri_propagate_components", tern, tern.data_ptr(),
+                 labels.data_ptr(), 0 if active is None else active.data_ptr(),
+                 b, h, w, parent.data_ptr(), rootval.data_ptr(),
+                 out.data_ptr())
+    return out
+
+
+def propagate_components_blocked(tern: torch.Tensor, labels: torch.Tensor,
+                                 want_converged: bool = False,
+                                 active: torch.Tensor | None = None):
+    """tern [B, H, W] uint8 and labels [B, H, W] int32 (non-negative,
+    ``INVALID`` on skip pixels) -> [B, H, W] int32, every pixel with the
+    minimum label of its component; with ``want_converged`` also the
+    certificate, constant true. ``active`` ([B] int32, or None: every
+    frame): a frame whose flag is 0 gets ``labels`` back unchanged (on the
+    card its launch copies them). CUDA tensors launch the kernel; CPU
+    tensors take the plain twin."""
+    if tern.device.type == "cpu":
+        return propagate_components_blocked_plain(tern, labels, want_converged,
+                                                  active)
+    _check_propagate_inputs(tern, labels, active)
+    b, h, w = tern.shape
     c = band_cluster_size(b, h, w)
     if c is not None:
+        out = build.empty((b, h, w), torch.int32, tern)
         build.check_cluster(build.call(
             "chalkydri_propagate_components_cluster", tern, tern.data_ptr(),
-            labels.data_ptr(), b, h, w, c, out.data_ptr()),
+            labels.data_ptr(), 0 if active is None else active.data_ptr(),
+            b, h, w, c, out.data_ptr()),
             "propagate_components_blocked", c, band_cluster_bytes(h, w, c))
     else:
-        parent = build.empty((b, h, w), torch.int32, tern)
-        rootval = build.empty((b, h, w), torch.int32, tern)
-        build.launch("chalkydri_propagate_components", tern, tern.data_ptr(),
-                     labels.data_ptr(), b, h, w, parent.data_ptr(),
-                     rootval.data_ptr(), out.data_ptr())
+        out = propagate_components_global(tern, labels, active)
         build.count(propagate_components_blocked, "global_launches")
     build.count(propagate_components_blocked)
     return _with_certificate(out, want_converged)

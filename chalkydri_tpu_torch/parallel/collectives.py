@@ -6,6 +6,8 @@ this module alone.
 
 Every function returns new tensors: a received row is a copy even when
 both bands share a device, so no band aliases rows its neighbour rewrites.
+Between cards a value moves by a device-to-device copy, never through the
+host, so every exchange can run inside a CUDA graph of one card.
 """
 
 from __future__ import annotations
@@ -42,3 +44,10 @@ def sum_over_bands(xs: Sequence[torch.Tensor],
     for x in xs[1:]:
         total = total + x.to(device)
     return total
+
+
+def psum(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The elementwise sum of the bands' tensors, on every band's device
+    (``jax.lax.psum`` over the ``space`` axis)."""
+    total = sum_over_bands(xs)
+    return [total.to(x.device, copy=True) for x in xs]

@@ -17,6 +17,13 @@
   tail (cluster -> quad -> refine -> decode -> solve) runs once per data
   group, on the group's first device and the reassembled frame.
 
+A data group whose devices are all one CUDA card runs its step as one
+replay of a CUDA graph (``utils/graph.py``), as the JAX package jits its
+``shard_map`` step: nothing in it reads the host, the band CCL's seam
+loop included (``sharded_stages``). A group spread over several cards
+runs eagerly: a ``torch.cuda.CUDAGraph`` records the work of one device
+(ROADMAP A6).
+
 Usage:
 
     mesh = make_mesh(["cuda:0"] * 4, space=4)
@@ -67,7 +74,7 @@ from chalkydri_tpu_torch.parallel.sharded_stages import (
     _fetch_facing,
     _threshold_block,
     label_components_block,
-    label_components_block_kernel,
+    label_components_block_kernel_rounds,
 )
 from chalkydri_tpu_torch.pipeline import (
     VisionOutput,
@@ -75,6 +82,7 @@ from chalkydri_tpu_torch.pipeline import (
     make_vision_pipeline,
 )
 from chalkydri_tpu_torch.solver.robot_pose import SIGN_FLIP_CONST
+from chalkydri_tpu_torch.utils.graph import CapturedStep
 
 CCL_IMPLS = ("auto", "jnp", "pallas", "pallas_interpret")
 
@@ -102,19 +110,24 @@ def make_sharded_vision_pipeline(
     gyro [B] on the grid (``mesh.place_frames`` / ``place_batch``);
     ``step(*place(...))`` returns the ``VisionOutput`` of the whole batch
     on the grid's first device. B must be a multiple of the 'data' axis.
-    ``step.pipes`` holds the data groups' steps (``spatial=False``; None
-    with ``spatial``).
+    ``step.pipes`` holds the data groups' steps, each called as
+    ``pipe(*bands, gyro)`` with its group's bands (one entry without
+    ``spatial``) and gyro. On a data group whose devices are one CUDA card
+    it is a ``utils/graph.py::CapturedStep`` (a CUDA graph replayed per
+    call, captured on the first call for each input shape; ``.module`` is
+    the eager step), elsewhere the eager step itself.
     The rig lives on the grid's devices: CUDA cards unless the caller built
     the mesh from CPU devices.
 
     ``spatial=False``: every data group runs ``make_vision_pipeline``'s
-    step on its frames: on a card each group's step replays a CUDA graph
-    of its own (``utils/graph.py``). ``spatial=True``: frame rows are
-    banded over 'space' through the front end (module docstring); frame
-    height must divide into ``space * 8`` (``space * 4`` at
-    ``quad_decimate=1``). That step stays eager: its band CCL reads one
-    host flag a seam round (``sharded_stages.label_components_block_kernel``),
-    which a CUDA graph cannot hold.
+    step on its frames. ``spatial=True``: frame rows are banded over
+    'space' through the front end (module docstring); frame height must
+    divide into ``space * 8`` (``space * 4`` at ``quad_decimate=1``).
+    Where a group's bands sit on distinct cards its step stays eager, by
+    design: a CUDA graph records one device's work (ROADMAP A6); nothing
+    in the step reads the host on any grid. ``step.ccl_rounds()`` then
+    gives the band CCL's seam rounds each frame ran in the last step
+    ([B] int32 on the grid's first device).
     ``pipeline_kwargs`` are ``make_vision_pipeline``'s (GREY frames only
     with ``spatial``); ``detector_kwargs["ccl_impl"]`` picks the band CCL:
     ``"jnp"`` the per-round plain path, ``"pallas"`` the kernel path
@@ -133,20 +146,19 @@ def make_sharded_vision_pipeline(
     rc_rot = place_batch(mesh, robot_to_cam.rotation)
     rc_t = place_batch(mesh, robot_to_cam.translation)
 
-    pipes = None
     if spatial:
-        groups = [_make_spatial_step(layout.to(dev), p, SE3(r, t),
-                                     **pipeline_kwargs)
-                  for dev, p, r, t in zip(leads, params, rc_rot, rc_t)]
+        runs = [_make_spatial_step(layout.to(dev), p, SE3(r, t),
+                                   **pipeline_kwargs)
+                for dev, p, r, t in zip(leads, params, rc_rot, rc_t)]
+        pipes = [CapturedStep(run, device=row[0]) if _one_card(row) else run
+                 for run, row in zip(runs, mesh.grid)]
     else:
         pipes = [make_vision_pipeline(layout.to(dev), p, SE3(r, t), device=dev,
                                       **pipeline_kwargs)
                  for dev, p, r, t in zip(leads, params, rc_rot, rc_t)]
-        groups = [lambda bands, gyro, pipe=pipe: pipe(bands[0], gyro)
-                  for pipe in pipes]
 
     def step(frames, gyro) -> VisionOutput:
-        outs = [run(bands, g) for run, bands, g in zip(groups, frames, gyro)]
+        outs = [pipe(*bands, g) for pipe, bands, g in zip(pipes, frames, gyro)]
         return outs[0] if len(outs) == 1 else _concat(outs, leads[0])
 
     def place(frames, gyro):
@@ -154,7 +166,17 @@ def make_sharded_vision_pipeline(
                 place_batch(mesh, gyro))
 
     step.pipes = pipes
+    if spatial:
+        step.ccl_rounds = lambda: torch.cat(
+            [run.ccl_rounds.to(leads[0]) for run in runs])
     return step, place
+
+
+def _one_card(devices: Sequence[torch.device]) -> bool:
+    """Whether every device of a data group is the same CUDA card."""
+    cards = {torch.cuda.current_device() if d.index is None else d.index
+             for d in devices if d.type == "cuda"}
+    return len(cards) == 1 and all(d.type == "cuda" for d in devices)
 
 
 def _band_candidates(terns, labels):
@@ -291,12 +313,15 @@ def _make_spatial_step(
     refine: bool = True,
     detector_kwargs: dict | None = None,
 ):
-    """One data group's row-banded step ``run(bands, gyro) -> VisionOutput``:
-    decimate -> threshold -> CCL -> boundary extraction per band, the
-    compaction over bands, then cluster -> quad -> refine -> decode ->
-    SQPnP once, on the device of ``layout`` and ``camera_params``. It runs
-    eagerly, no CUDA graph: the band CCL reads one host flag a seam round
-    (``bool(changed)``, ``sharded_stages.label_components_block_kernel``)."""
+    """One data group's row-banded step ``run(*bands, gyro) ->
+    VisionOutput``: decimate -> threshold -> CCL -> boundary extraction per
+    band, the compaction over bands, then cluster -> quad -> refine ->
+    decode -> SQPnP once, on the device of ``layout`` and
+    ``camera_params``. It reads nothing on the host and makes no tensor
+    from host data, so on one card it runs inside a CUDA graph.
+    ``run.ccl_rounds`` ([B] int32 on that device) holds the seam rounds
+    each frame ran in the last call, eager or replayed: every call writes
+    it in place (``ccl_iters`` each on the per-round path)."""
     lead = camera_params.device
     dk = dict(detector_kwargs or {})
     qd = int(dk.get("quad_decimate", 2))
@@ -323,9 +348,12 @@ def _make_spatial_step(
     camera_params = camera_params.to(torch.float32)
     rc_rot = robot_to_cam.rotation.to(torch.float32)
     rc_t = robot_to_cam.translation.to(torch.float32)
+    ccl_rounds = torch.zeros(camera_params.shape[0], dtype=torch.int32,
+                             device=lead)
 
     @torch.no_grad()
-    def run(bands: Sequence[torch.Tensor], gyro: torch.Tensor) -> VisionOutput:
+    def run(*tensors: torch.Tensor) -> VisionOutput:
+        *bands, gyro = tensors
         # 1. decimation, local to the band
         hl = bands[0].shape[1]
         if hl % (TILE * qd):
@@ -343,8 +371,10 @@ def _make_spatial_step(
             impl = "pallas" if terns[0].device.type == "cuda" else "jnp"
         if impl == "jnp":
             labels = label_components_block(terns, ccl_iters)
+            ccl_rounds.fill_(ccl_iters)
         else:
-            labels = label_components_block_kernel(terns)
+            labels, rounds = label_components_block_kernel_rounds(terns)
+            ccl_rounds.copy_(rounds)
         # 4. boundary extraction per band (kernel B7), 5. compaction
         black, white, payload, dropped = _compact_over_bands(
             _band_candidates(terns, labels), hl2, w2, edge_cap, lead)
@@ -368,4 +398,5 @@ def _make_spatial_step(
             detections=dets,
         )
 
+    run.ccl_rounds = ccl_rounds
     return run

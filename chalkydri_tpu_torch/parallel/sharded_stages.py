@@ -31,7 +31,7 @@ from chalkydri_tpu_torch.ops.propagate import (
     label_components_blocked,
     propagate_components_blocked,
 )
-from chalkydri_tpu_torch.parallel.collectives import fetch_rows
+from chalkydri_tpu_torch.parallel.collectives import fetch_rows, psum
 
 # Halo of the threshold stage: the 3x3 tile neighborhood reaches one
 # 4-pixel tile into each neighbour's rows.
@@ -151,33 +151,38 @@ def label_components_block(blocks: Sequence[torch.Tensor],
     return [lab.to(torch.int32) for lab in labels]
 
 
-def label_components_block_kernel(blocks: Sequence[torch.Tensor],
-                                  outer_rounds: int | None = None
-                                  ) -> list[torch.Tensor]:
+def label_components_block_kernel_rounds(blocks: Sequence[torch.Tensor],
+                                         outer_rounds: int | None = None):
     """Kernel-backed CCL over the bands [B, hl, W] of one data group (the
-    JAX package's ``label_components_block_pallas``): every band runs
-    kernel B6 to its own fixed point (``label_components_blocked``), its
-    labels move onto the frame's id space (local padded-flat index +
-    ``j * hl * padded_width(W)``, monotone in (row, col), so
-    order-isomorphic to ``label_components_block``'s), and then seam
-    neighbor-mins alternate with ``propagate_components_blocked`` until a
-    seam exchange changes no band, or ``outer_rounds`` (default
-    ``2 * bands + 2``) propagations have run, which only a component
-    serpentining between bands reaches.
+    JAX package's ``label_components_block_pallas``), with the seam rounds
+    each frame ran: (labels per band, rounds [B] int32 on the first band's
+    device).
+
+    Every band runs kernel B6 to its own fixed point
+    (``label_components_blocked``), its labels move onto the frame's id
+    space (local padded-flat index + ``j * hl * padded_width(W)``,
+    monotone in (row, col), so order-isomorphic to
+    ``label_components_block``'s), and then exactly ``outer_rounds``
+    (default ``2 * bands + 2``) seam rounds follow, each: the seam
+    neighbor-min; a per-frame flag, on the card, that says whether it
+    changed any seam row of the frame in any band (summed over the bands
+    by ``collectives.psum``, as the JAX ``while_loop``'s ``cond`` sums its
+    flags); and ``propagate_components_blocked`` gated by that flag. A
+    frame whose flag is 0 gets its labels back unchanged, and its later
+    rounds find the same seams, so the result is the loop that stops at
+    the first round that changes nothing, bit for bit, and the cap binds
+    where it did: only a component serpentining between bands reaches it.
+    No value is read on the host, so the loop runs inside a CUDA graph.
 
     B6 is exact within a band, so "no seam row changed" IS the frame's
     fixed point; the JAX package's per-band convergence certificates are
     constant true here and drop out of the test.
 
-    Host reads: the exit test reads ONE flag per round (every band's
-    changed-flag gathered on the first band's device), as the JAX
-    ``while_loop`` reads its ``psum``. The alternative, always running
-    ``outer_rounds`` rounds without reading, is as correct (at the fixed
-    point a round changes nothing) but costs ``2 * bands + 2`` propagations
-    per band and their seam exchanges where a scene needs one to three,
-    and the step's time goes to launches, not to the device. The read
-    comes at the head of the step, where the device queue is short.
-    ``label_components_block_kernel.host_reads`` counts them.
+    The flag is per frame, where JAX's ``psum`` is per data group: a frame
+    whose seams stopped changing is at its fixed point, so its labels are
+    the same either way, and a per-frame flag lets B6 copy its labels
+    instead of running the union-find again. ``rounds[b]`` counts the
+    rounds in which frame b was active (B4 counts its rounds alike).
 
     B6's wrappers route by device (kernel on CUDA bands, plain twin on CPU
     bands), so this one loop is also the JAX package's interpret mode.
@@ -191,25 +196,31 @@ def label_components_block_kernel(blocks: Sequence[torch.Tensor],
     for j, blk in enumerate(blocks):
         lab = label_components_blocked(blk)
         labels.append(torch.where(lab == INVALID, lab, lab + j * stride))
+    rounds = torch.zeros(blocks[0].shape[0], dtype=torch.int32,
+                         device=blocks[0].device)
     if n == 1:
-        return labels
+        return labels, rounds
     facing = _facing_values(blocks)
-    lead = blocks[0].device
     for _ in range(outer_rounds):
         seams = _ici_seam_min(labels, blocks, facing)
-        changed = torch.stack([
-            ((top != lab[:, :1]).any() | (bottom != lab[:, -1:]).any()).to(lead)
-            for lab, (top, bottom) in zip(labels, seams)]).any()
-        label_components_block_kernel.host_reads += 1
-        if not bool(changed):
-            break
+        changed = psum([
+            ((top != lab[:, :1]) | (bottom != lab[:, -1:])).flatten(1)
+            .any(dim=1).to(torch.int32)
+            for lab, (top, bottom) in zip(labels, seams)])
+        active = [(c > 0).to(torch.int32) for c in changed]
+        rounds += active[0]
         labels = [propagate_components_blocked(
-                      blk, _with_seam_rows(lab, top, bottom))
-                  for blk, lab, (top, bottom) in zip(blocks, labels, seams)]
-    return labels
+                      blk, _with_seam_rows(lab, top, bottom), active=act)
+                  for blk, lab, (top, bottom), act
+                  in zip(blocks, labels, seams, active)]
+    return labels, rounds
 
 
-label_components_block_kernel.host_reads = 0
+def label_components_block_kernel(blocks: Sequence[torch.Tensor],
+                                  outer_rounds: int | None = None
+                                  ) -> list[torch.Tensor]:
+    """``label_components_block_kernel_rounds``'s labels alone."""
+    return label_components_block_kernel_rounds(blocks, outer_rounds)[0]
 
 
 def sharded_label_components(tern_bands, iters: int = 16):

@@ -15,10 +15,11 @@ prints, one line each:
   compaction over bands, and the whole step);
 - a ``torch.profiler`` window over 3 steps: wall ms, the device kernel
   time, the device's busy share and the host's launches per step
-  (kernels, CUDA graphs, copies); on the single-card paths for the eager
-  step (the captured step's ``.module``, as the stages above) and for
-  the replayed step (``utils/graph.py``), whose whole step is also timed
-  on the host clock.
+  (kernels, CUDA graphs, copies), for the eager step (the captured
+  step's ``.module``, as the stages above; on the row-banded paths each
+  data group's) and for the replayed step (``utils/graph.py``), whose
+  whole step is also timed on the host clock; on the row-banded paths
+  also the seam rounds each frame ran.
 
 Before the paths it prints where the capped CCL rounds spend their time
 (``ccl rounds ...`` lines): the device time of each CUDA kernel inside B4
@@ -123,7 +124,8 @@ def stage_times(step, frames, gyro, runs: int) -> dict[str, float]:
 
 def band_stage_times(step, place, frames, gyro, qd: int, edge_cap: int,
                      runs: int) -> dict[str, float]:
-    """Host ms of each front-end stage of the row-banded step alone."""
+    """Host ms of each front-end stage of the row-banded step alone, and
+    of the whole eager step (each data group's ``.module``)."""
     from chalkydri_tpu_torch.detector.pipeline import decimate2
     from chalkydri_tpu_torch.detector.threshold import MIN_WHITE_BLACK_DIFF
     from chalkydri_tpu_torch.parallel import pipeline as par
@@ -154,8 +156,21 @@ def band_stage_times(step, place, frames, gyro, qd: int, edge_cap: int,
     out["compaction over bands"] = _host_ms(
         lambda: par._compact_over_bands(pages, hl, w, edge_cap,
                                         terns[0].device), runs)
-    out["whole step"] = _host_ms(lambda: step(*place(frames, gyro)), runs)
+    out["whole step"] = _host_ms(lambda: banded_eager(step, place)(
+        frames, gyro), runs)
     return out
+
+
+def banded_eager(step, place):
+    """The eager form of ``make_sharded_vision_pipeline``'s one-group
+    step: its group's ``.module`` on the placed bands."""
+    (pipe,) = step.pipes
+
+    def run(frames, gyro):
+        bands, gyros = place(frames, gyro)
+        return getattr(pipe, "module", pipe)(*bands[0], gyros[0])
+
+    return run
 
 
 def device_times(fn, calls: int = 10, per_call: int | None = None,
@@ -447,9 +462,16 @@ def main() -> None:
                 spatial=True, detector_kwargs={"quad_decimate": qd})
             stages = band_stage_times(banded, place, frames, gyro, qd,
                                       MAX_EDGE_POINTS, args.runs)
-            share = device_share(lambda f, g: banded(*place(f, g)), frames,
-                                 gyro)
-            replay = None
+            share = device_share(banded_eager(banded, place), frames, gyro)
+
+            def replayed(f, g, banded=banded, place=place):
+                return banded(*place(f, g))
+
+            stages["whole step, replayed"] = _host_ms(
+                lambda: replayed(frames, gyro), args.runs)
+            replay = device_share(replayed, frames, gyro)
+            rounds = banded.ccl_rounds().tolist()
+            print(f"{path} seam rounds each frame ran: {rounds}", flush=True)
         else:
             step = make_vision_pipeline(layout, params, rc, device=dev,
                                         detector_kwargs={"quad_decimate": qd})
@@ -461,11 +483,10 @@ def main() -> None:
         shape = "x".join(str(d) for d in frames.shape)
         for name, ms in stages.items():
             print(f"{path} {shape} {name}: {ms:.3f} ms", flush=True)
-        print(f"{path} profiler{'' if replay is None else ', eager'}: "
-              f"{share_line(share)} [{card}]", flush=True)
-        if replay is not None:
-            print(f"{path} profiler, replayed: {share_line(replay)} [{card}]",
-                  flush=True)
+        print(f"{path} profiler, eager: {share_line(share)} [{card}]",
+              flush=True)
+        print(f"{path} profiler, replayed: {share_line(replay)} [{card}]",
+              flush=True)
         report[path] = {"shape": shape, "stages_ms": stages, **share,
                         "replayed": replay}
     print(json.dumps(report))

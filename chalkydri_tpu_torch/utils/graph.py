@@ -14,6 +14,14 @@ caller's tensors into those buffers, replays the graph and returns fresh
 tensors that the caller owns: no output aliases a buffer that the next
 replay overwrites. ``.module`` is the eager module.
 
+The callers: ``pipeline.make_vision_pipeline`` (the single-card step),
+``detector.make_detector`` (the detector, and each program of
+``capacity_fallback``) and ``parallel.make_sharded_vision_pipeline``
+(each data group whose devices are one card: the whole-frame step, and
+the row-banded step, whose band CCL runs its seam rounds gated on the
+card). A row-banded group spread over several cards stays eager: a graph
+records one device's work.
+
 There is no fallback: a failed capture or replay raises.
 
 The graphs of one card share one memory pool, so their intermediates

@@ -37,7 +37,11 @@
    entry) at the row bands of the spatial scene, 2 x 1312x1600 in four
    bands of 328 rows (and of 164x800 after decimation), with their device
    time and device launches a call, plus a snake that crosses every seam
-   of four bands; and off those shapes
+   of four bands; B6's per-frame gate (``active``) on both of its routes,
+   the global-memory one included, at those band shapes and on snakes:
+   every frame active, none, and mixed flags, each bit-identical to the
+   plain version, an inactive frame's output equal to its labels, and
+   the time of a call in which no frame is active; and off those shapes
    (bands of 1-3 rows and of odd height, CTAs of B6's cluster left
    without rows, widths that are no multiple of 4 or 16, snakes through
    every CTA, the last band of the cluster route and one row over it,
@@ -53,15 +57,21 @@
    4 x 1280x800 (B3, B4, B2), ``quad_decimate=1`` at 2 x 1600x1304 (B5,
    B2), and the row-banded step (``spatial=True``) at 2 x 1600x1312 over a
    grid of four bands on the one card, at ``quad_decimate=2`` and ``1``
-   (B6 on its cluster route only, B7, B2). Each checks the ids and each
+   (B6 on its cluster route only, B7, B2; the step a replay of one CUDA
+   graph, its band CCL's seam rounds gated on the card: a fixed tally a
+   replay of one B6 label call, ``2 * bands + 2`` B6 propagate calls and
+   one B7 call a band, and one B2 call). Each checks the ids and each
    frame's pose against its own truth and that every kernel of the path
    launched, compares the step with the same step run on the plain twins
-   only (the eager module's), and times both; the
-   row-banded step (eager: it reads a host flag a seam round) is also
-   held against the single-card step on the same frames;
+   only (the eager module's), and times both; the row-banded step is
+   also held against the single-card step on the same frames, and run,
+   eager and replayed, under PyTorch's sync debug mode "error", which
+   raises at a host read (none may come), beside the seam rounds each
+   frame ran;
 6. holds the captured step to its eager module (``.module``) on the
-   qd2, qd1 bench and qd1 deployed paths, on the bench twin's scene and
-   on the data-parallel grid (two groups on the one card, a graph each):
+   qd2, qd1 bench and qd1 deployed paths, on the bench twin's scene, on
+   the data-parallel grid (two groups on the one card, a graph each) and
+   on the row-banded paths at qd2 and qd1 (four bands on the card):
    two eager steps on one input bit-identical, then
    ``GRAPH_REPLAYS`` replays on alternating inputs each bit-identical to
    the eager output of its input, the first call's output again after
@@ -490,13 +500,59 @@ def routes(dev, card, dep_small, big) -> None:
           flush=True)
 
 
+def gate_checks(label, bands, merged) -> int:
+    """B6's propagate entry with a per-frame gate, on each band of
+    ``bands`` with its labels ``merged``, on both routes (the wrapper's
+    cluster route and ``propagate_components_global``): no gate, every
+    frame active, none, and each frame alone, each bit-identical to the
+    plain version with the same gate, and the output of an inactive frame
+    equal to its labels. Returns the calls checked."""
+    import torch
+
+    from chalkydri_tpu_torch.ops.propagate import (
+        band_cluster_size,
+        propagate_components_blocked,
+        propagate_components_blocked_plain,
+        propagate_components_global,
+    )
+
+    checked = 0
+    for j, (t, m) in enumerate(zip(bands, merged)):
+        b = t.shape[0]
+        if band_cluster_size(*t.shape) is None:
+            raise AssertionError(f"{label} band {j}: not on the cluster route")
+        gates = [None, torch.ones(b, dtype=torch.int32, device=t.device),
+                 torch.zeros(b, dtype=torch.int32, device=t.device)]
+        gates += [torch.nn.functional.one_hot(
+            torch.tensor(i, device=t.device), b).to(torch.int32)
+            for i in range(b)] if b > 1 else []
+        for active in gates:
+            want = propagate_components_blocked_plain(t, m, active=active)
+            for route, fn in (("cluster", propagate_components_blocked),
+                              ("global", propagate_components_global)):
+                got = fn(t, m, active=active)
+                require_equal(f"{label} band {j} {route} route, gate "
+                              f"{None if active is None else active.tolist()}",
+                              ("labels",), (got,), (want,))
+                off = (torch.zeros(b, dtype=torch.bool, device=t.device)
+                       if active is None else active == 0)
+                if not torch.equal(got[off], m[off]):
+                    raise AssertionError(f"{label} band {j} {route} route: "
+                                         f"an inactive frame's labels moved")
+                checked += 1
+    return checked
+
+
 def band_phases(dev, card, frames_sp):
     """B6 and B7 against their plain twins on the spatial scene's row bands
     (full resolution and decimated), on a whole frame, and on a snake that
-    crosses every seam of four bands. Times them at the full-resolution
-    band shape, with their device time and device launches a call.
-    Returns {kernel: (err, ms, plain_ms, bytes, ops, device_ms,
-    device launches a call)}."""
+    crosses every seam of four bands; B6's per-frame gate on both routes
+    (``gate_checks``) at every band and on two snakes. Times them at the
+    full-resolution band shape, with their device time and device launches
+    a call, and B6's propagate entry with no frame active. Returns
+    {kernel: (err, ms, plain_ms, bytes, ops, device_ms, device launches a
+    call)} and, under "propagate inactive", (ms, plain_ms, device_ms,
+    device launches a call)."""
     import torch
 
     from chalkydri_tpu_torch.detector.cluster import extract_boundary_points
@@ -523,6 +579,7 @@ def band_phases(dev, card, frames_sp):
         _ici_seam_min,
         _with_seam_rows,
         label_components_block_kernel,
+        label_components_block_kernel_rounds,
     )
 
     mesh = make_mesh([dev] * BANDS, space=BANDS)
@@ -550,6 +607,11 @@ def band_phases(dev, card, frames_sp):
             require_equal(f"B6 propagate qd{qd} band {j}", ("labels",),
                           (propagate_components_blocked(t, m),),
                           (propagate_components_blocked_plain(t, m),))
+        gates = gate_checks(f"B6 gate qd{qd}", bands, merged)
+        print(f"B6 gate qd{qd}: {gates} calls ({BANDS} bands x no gate, "
+              f"every frame active, none, each frame alone x the cluster "
+              f"and the global-memory route) bit-identical to the plain "
+              f"version, inactive frames' labels unchanged", flush=True)
         # B7: the whole frame, and every band with its halo rows
         whole_labels = gather_frames([label_components_block_kernel(bands)])
         whole = extract_candidates_blocked(tern, whole_labels)
@@ -609,21 +671,43 @@ def band_phases(dev, card, frames_sp):
                 t_ext.shape if "band" in name else t.shape, card, kernel,
                 plain, wrappers[name], 1)
             out[name] = (err, ms, plain_ms, nbytes, ops, dev_ms, dev_launches)
+        # a round in which no frame is active: the launch copies the labels
+        off = torch.zeros(t.shape[0], dtype=torch.int32, device=dev)
+        out["propagate inactive"] = time_kernel(
+            "B6 propagate_components_blocked, no frame active", t.shape, card,
+            lambda: propagate_components_blocked(t, m, active=off),
+            lambda: propagate_components_blocked_plain(t, m, active=off),
+            propagate_components_blocked, 1)
 
-    # a snake through every seam of four 16-row bands
-    serp = torch.from_numpy(serpentine(stripes=6)).to(dev)[None]
+    # a snake through every seam of four 16-row bands, and beside it a
+    # shorter one, which ends its seam rounds earlier
+    serp = torch.from_numpy(np.stack(
+        [serpentine(stripes=6), serpentine(stripes=2)])).to(dev)
     serp_bands = place_frames(mesh, serp, spatial=True)[0]
-    got = gather_frames([label_components_block_kernel(
-        serp_bands, outer_rounds=100)])
+    got, rounds = label_components_block_kernel_rounds(serp_bands,
+                                                       outer_rounds=100)
     with plain_twins():
-        want = gather_frames([label_components_block_kernel(
-            serp_bands, outer_rounds=100)])
-    require_equal("B6 serpentine over bands", ("labels",), (got,), (want,))
-    if len(torch.unique(got[serp == 255])) != 1:
+        want, want_rounds = label_components_block_kernel_rounds(
+            serp_bands, outer_rounds=100)
+    got, want = gather_frames([got]), gather_frames([want])
+    require_equal("B6 serpentine over bands", ("labels", "rounds"),
+                  (got, rounds), (want, want_rounds))
+    if len(torch.unique(got[0][serp[0] == 255])) != 1:
         raise AssertionError("B6 serpentine: the snake has more than 1 label")
-    print("B6 serpentine: the snake crosses every seam of 4 bands, labels "
-          "bit-identical to the twins' loop, the whole snake one label",
-          flush=True)
+    if rounds[0] <= 2 * BANDS + 2 or rounds[0] == rounds[1]:
+        raise AssertionError(f"B6 serpentine: rounds {rounds.tolist()}")
+    stride = serp_bands[0].shape[1] * padded_width(serp.shape[2])
+    local = [label_components_blocked(t) for t in serp_bands]
+    labels = [torch.where(lab == INVALID, lab, lab + j * stride)
+              for j, lab in enumerate(local)]
+    merged = [_with_seam_rows(lab, top, bottom) for lab, (top, bottom)
+              in zip(labels, _ici_seam_min(labels, serp_bands))]
+    gates = gate_checks("B6 gate serpentine", serp_bands, merged)
+    print(f"B6 serpentine: a snake that crosses every seam of 4 bands and "
+          f"a shorter one, labels and seam rounds bit-identical to the twins' "
+          f"loop (rounds run {rounds.tolist()} of 100), the whole snake one "
+          f"label; the gate on its bands: {gates} calls bit-identical, both "
+          f"routes", flush=True)
     return out
 
 
@@ -824,12 +908,56 @@ def in_slot_order_of(label, ref, out):
 
 def replay_launches(step, counters, replays: int) -> dict:
     """The launches that ``replays`` replays of ``step`` (a CapturedStep
-    holding one graph) make, by kernel: what its capture recorded, times
-    the replays."""
-    (entry,) = step.graphs.values()
-    return {name: replays * sum(n for (fn, attr), n in entry.tally.items()
+    holding one graph, or a ``sharded`` step whose ``.pipes`` are such)
+    make, by kernel: what the captures recorded, times the replays."""
+    entries = [e for pipe in getattr(step, "pipes", [step])
+               for e in pipe.graphs.values()]
+    if len(entries) != len(getattr(step, "pipes", [step])):
+        raise AssertionError(f"{len(entries)} graphs, one a step expected")
+    return {name: replays * sum(n for entry in entries
+                                for (fn, attr), n in entry.tally.items()
                                 if fn is counters[name] and attr == "launches")
             for name in counters}
+
+
+def sharded(step, place, dev):
+    """``make_sharded_vision_pipeline``'s ``(step, place)`` as one step of
+    ``(frames, gyro)``: each data group's step replayed where it is a
+    CUDA graph; ``.module`` is the eager step (every group's ``.module``),
+    ``.pipes`` the groups' steps."""
+    from chalkydri_tpu_torch.parallel.pipeline import _concat
+
+    def run(frames, gyro):
+        return step(*place(frames, gyro))
+
+    def eager(frames, gyro):
+        bands, gyros = place(frames, gyro)
+        outs = [pipe.module(*b, g)
+                for pipe, b, g in zip(step.pipes, bands, gyros)]
+        return outs[0] if len(outs) == 1 else _concat(outs, dev)
+
+    run.module, run.pipes = eager, step.pipes
+    return run
+
+
+def reads_host(fn) -> bool:
+    """Whether ``fn()`` makes a synchronizing CUDA call (a host read):
+    it runs under PyTorch's sync debug mode "error", which raises at the
+    first such call."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        if "synchronizing" not in str(e):
+            raise
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    return False
 
 
 def drive_path(label, step, frames, true_xy_yaw, counters, expect, card,
@@ -1745,13 +1873,7 @@ def main() -> None:
     from chalkydri_tpu_torch.parallel.pipeline import (
         make_sharded_vision_pipeline,
     )
-    from chalkydri_tpu_torch.parallel.sharded_stages import (
-        label_components_block_kernel,
-    )
     from chalkydri_tpu_torch import bench as twin
-    from chalkydri_tpu_torch.parallel.pipeline import (
-        _concat as concat_outputs,
-    )
     from chalkydri_tpu_torch.pipeline import make_vision_pipeline
     from chalkydri_tpu_torch.tools.scenes import TAGS, load_scene
     from chalkydri_tpu_torch.utils import graph
@@ -1879,34 +2001,56 @@ def main() -> None:
                      counters, ("threshold_ccl_exact", "segment_stats"), card,
                      TIMED_STEPS["qd1"])
 
-    # The row-banded step: four bands of the one card, kernel CCL.
+    # The row-banded step: four bands of the one card, kernel CCL, one
+    # CUDA graph replay a step.
     mesh = make_mesh([dev] * BANDS, space=BANDS)
-    spatial = {}
+    spatial, sp_steps = {}, {}
+    seam_rounds = 2 * BANDS + 2  # the band CCL's default outer_rounds
+    per_replay = {"label_components_blocked": BANDS,
+                  "propagate_components_blocked": seam_rounds * BANDS,
+                  "extract_candidates_band": BANDS, "segment_stats": 1}
+    sp_gyro = torch.tensor([p[2] for p in sp_poses], dtype=torch.float32,
+                           device=dev)
+    probe = torch.ones(1, device=dev)
+    if not reads_host(lambda: bool(probe.any())):
+        raise AssertionError("reads_host does not see a host read")
     label_components_blocked.global_launches = 0
     propagate_components_blocked.global_launches = 0
     for qd in (2, 1):
         dk = {"quad_decimate": qd, "ccl_impl": "pallas"}
         sp_step, sp_place = make_sharded_vision_pipeline(
             layout, sp_params, sp_rc, mesh, spatial=True, detector_kwargs=dk)
+        if not isinstance(sp_step.pipes[0], graph.CapturedStep):
+            raise AssertionError("the row-banded step on one card is not "
+                                 "a captured step")
+        banded = sp_steps[qd] = sharded(sp_step, sp_place, dev)
         single = make_vision_pipeline(layout, sp_params, sp_rc, device=dev,
                                       detector_kwargs={"quad_decimate": qd})
+        label = f"spatial deployed qd{qd} path"
         spatial[qd] = drive_path(
-            f"spatial deployed qd{qd} path",
-            lambda f, g: sp_step(*sp_place(f, g)), sp_frames, sp_poses,
+            label, banded, sp_frames, sp_poses,
             counters, ("label_components_blocked",
                        "propagate_components_blocked",
                        "extract_candidates_band", "segment_stats"), card,
             TIMED_STEPS["spatial"], against=single,
             ties_may_reorder=(qd == 2))
+        if spatial[qd] != {k: STEPS * per_replay.get(k, 0) for k in counters}:
+            raise AssertionError(f"{label}: launches {spatial[qd]} in {STEPS}"
+                                 f" replays, {per_replay} a replay expected")
         if (label_components_blocked.global_launches
                 or propagate_components_blocked.global_launches):
-            raise AssertionError(f"spatial deployed qd{qd} path: B6 took "
-                                 f"the global-memory route")
-        label_components_block_kernel.host_reads = 0
-        sp_step(*sp_place(sp_frames, torch.zeros(len(sp_poses), device=dev)))
-        print(f"spatial deployed qd{qd} path: "
-              f"{label_components_block_kernel.host_reads} host reads a step "
-              f"(the band CCL's exit test)", flush=True)
+            raise AssertionError(f"{label}: B6 took the global-memory route")
+        reads = (reads_host(lambda: banded.module(sp_frames, sp_gyro)),
+                 reads_host(lambda: banded(sp_frames, sp_gyro)))
+        rounds = sp_step.ccl_rounds().tolist()
+        if any(reads) or not all(1 <= r <= seam_rounds for r in rounds):
+            raise AssertionError(f"{label}: host reads (eager, replayed) "
+                                 f"{reads}, rounds {rounds}")
+        print(f"{label}: 0 host reads a step, eager and replayed (each "
+              f"step ran under torch.cuda.set_sync_debug_mode('error'), "
+              f"which raises on bool(x.any())); seam rounds each frame ran "
+              f"{rounds} of {seam_rounds}; a replay launches {per_replay}",
+              flush=True)
 
     # -- the captured step against its eager module ------------------------
     t_graph = time.perf_counter()
@@ -1917,14 +2061,8 @@ def main() -> None:
     twin_step = twin.make_step(dev)
     twin_frames = torch.from_numpy(np.broadcast_to(
         twin.build_scene(), (twin.BATCH, twin.H, twin.W)).copy()).to(dev)
-    grid, grid_place = make_sharded_vision_pipeline(
-        layout, params, rc, make_mesh([dev] * 2), spatial=False)
-
-    def grid_eager(f, g):
-        bands, gyros = grid_place(f, g)
-        return concat_outputs([p.module(b[0], gg) for p, b, gg in
-                               zip(grid.pipes, bands, gyros)], dev)
-
+    grid = sharded(*make_sharded_vision_pipeline(
+        layout, params, rc, make_mesh([dev] * 2), spatial=False), dev)
     for label, s, e, f, g, wrappers in (
             ("qd2 main path", step, step.module, frames, gyro0, [step]),
             ("qd1 bench path", step_qd1, step_qd1.module, frames, gyro0,
@@ -1933,9 +2071,11 @@ def main() -> None:
              dep_gyro, [step_dep]),
             ("bench twin's scene", twin_step, twin_step.module, twin_frames,
              torch.zeros(twin.BATCH, device=dev), [twin_step]),
-            ("data-parallel grid, 2 groups on one card",
-             lambda f, g: grid(*grid_place(f, g)), grid_eager, frames, gyro0,
-             grid.pipes)):
+            ("data-parallel grid, 2 groups on one card", grid, grid.module,
+             frames, gyro0, grid.pipes),
+            *((f"spatial deployed qd{qd} path, {BANDS} bands on one card",
+               sp_steps[qd], sp_steps[qd].module, sp_frames, sp_gyro,
+               sp_steps[qd].pipes) for qd in (2, 1))):
         graph_path(label, s, e, f, g, wrappers, counters, card)
     stats = torch.cuda.memory_stats(dev)
     print(f"graph pool: {graph.pool_bytes(dev)} bytes in the card's shared "
@@ -2037,7 +2177,10 @@ def main() -> None:
              device_ms=b5_dev_ms, launches_per_call=b5_dev_launches),
         *(dict(kernel_entry(name, source, replaces, spatial[1][name],
                             *band[name][:5]),
-               device_ms=band[name][5], launches_per_call=band[name][6])
+               device_ms=band[name][5], launches_per_call=band[name][6],
+               **({"inactive_ms": band["propagate inactive"][0],
+                   "inactive_device_ms": band["propagate inactive"][2]}
+                  if name == "propagate_components_blocked" else {}))
           for name, source, replaces in (
               ("label_components_blocked", "propagate.cu",
                "ccl_kernel.py:1244"),

@@ -15,9 +15,19 @@ On the CPU:
 - the launch tally of a capture and its replays (``ops/build.py``), and
   the fresh copies of nested outputs.
 
+The row-banded step (``parallel.make_sharded_vision_pipeline(...,
+spatial=True)``) on a CPU grid of four bands of the tiny rig, whose tags
+straddle the middle seam: a data group's step makes no host read and no
+host-made tensor either (with kernel B6 stood in for by plain rounds
+without the twin's per-round host check, and on the per-round CCL path),
+its output shapes do not depend on the frames, and ``step.pipes`` holds
+the eager group steps on the CPU.
+
 On a card (marked ``cuda``, skipped without one): replayed outputs equal
 eager outputs bit for bit over alternating inputs, an output stays as it
-was after later calls, and a new frame shape captures a second graph.
+was after later calls, and a new frame shape captures a second graph;
+the row-banded step over four bands of the card replays equal to its
+eager step too.
 """
 
 import numpy as np
@@ -27,7 +37,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from chalkydri_tpu_torch.detector import pipeline as tdet
 from chalkydri_tpu_torch.detector.pipeline import Detector, make_detector
+from chalkydri_tpu_torch.detector.segment import label_components, padded_width
 from chalkydri_tpu_torch.ops import build
+from chalkydri_tpu_torch.parallel import pipeline as tpar
+from chalkydri_tpu_torch.parallel import sharded_stages
+from chalkydri_tpu_torch.parallel.mesh import make_mesh
 from chalkydri_tpu_torch.pipeline import (
     FrameSolver,
     VisionOutput,
@@ -48,6 +62,7 @@ HOST_READS = {"_local_scalar_dense", "nonzero", "equal", "is_nonzero",
               "_linalg_check_errors", "index[bool]", "index_put_[bool]",
               "index_put[bool]"}
 BATCH = 2
+BANDS = 4  # row bands of the row-banded step, on one device
 # dispatch branches of the quad search at the tiny rig's 128x256 frames:
 # (quad_decimate, EXTRACT_BLOCK_MAX_PIXELS patched to)
 BRANCHES = {"qd2": (2, None), "qd1": (1, None), "qd1 B3": (1, 0)}
@@ -78,6 +93,43 @@ def tiny_step(qd: int, device="cpu"):
     frames = torch.from_numpy(render_tiny(layout, rc, BATCH)).to(device)
     gyro = torch.zeros(BATCH, dtype=torch.float32, device=device)
     return step, frames, gyro
+
+
+def banded_step(qd: int, impl: str = "pallas", device="cpu"):
+    """The row-banded step over four bands of one device on the tiny rig:
+    (step, placed bands and gyro of the one data group, frames, gyro);
+    ``step.place`` is its placement."""
+    layout, cams = tiny_rig()
+    params, rc = build_rig_from_config(cams * BATCH, layout, device=device)
+    step, place = tpar.make_sharded_vision_pipeline(
+        layout, params, rc, make_mesh([device] * BANDS, space=BANDS),
+        spatial=True, detector_kwargs={"quad_decimate": qd, "ccl_impl": impl})
+    frames = torch.from_numpy(render_tiny(layout, rc, BATCH)).to(device)
+    gyro = torch.zeros(BATCH, dtype=torch.float32, device=device)
+    bands, gyros = place(frames, gyro)
+    step.place = place
+    return step, (*bands[0], gyros[0]), frames, gyro
+
+
+def b6_plain_rounds(monkeypatch, rounds: int = 4) -> None:
+    """Stand ``rounds`` plain CCL rounds in for kernel B6 in the band CCL.
+    On the card B6 is one launch an entry; its CPU twin checks for its
+    fixed point on the host every round (``torch.equal``), which no graph
+    of the card's step holds. At the tiny rig's bands ``rounds`` reach the
+    fixed point, so the step's outputs stay the twin's."""
+    def label(tern):
+        _, h, w = tern.shape
+        flat = (torch.arange(h)[:, None] * padded_width(w)
+                + torch.arange(w)[None, :])
+        return label_components(tern, rounds, labels0=flat)
+
+    def propagate(tern, labels, active=None):
+        out = label_components(tern, rounds, labels0=labels)
+        return torch.where(active.to(torch.bool)[:, None, None], out, labels)
+
+    monkeypatch.setattr(sharded_stages, "label_components_blocked", label)
+    monkeypatch.setattr(sharded_stages, "propagate_components_blocked",
+                        propagate)
 
 
 def leaves(out: VisionOutput) -> list:
@@ -173,6 +225,54 @@ def test_wrapper_refuses_a_cpu_module():
         graph.CapturedStep(step.detector.detect, device="cpu")
 
 
+@pytest.mark.parametrize("qd,impl", [(2, "pallas"), (1, "pallas"),
+                                     (2, "jnp")])
+def test_row_banded_step_makes_no_host_read(qd, impl, monkeypatch):
+    step, args, _, _ = banded_step(qd, impl)
+    (pipe,) = step.pipes
+    want = pipe(*args)
+    assert int(want.tag_count.min()) >= 1
+    b6_plain_rounds(monkeypatch)
+    first, second, fresh, n_ops = scan(lambda *_: pipe(*args), None, None)
+    assert n_ops > 1000
+    assert first == [] and second == []
+    assert fresh == []
+    got = pipe(*args)
+    for a, b in zip(leaves(got), leaves(want)):
+        assert torch.equal(a, b)
+    # the tags straddle the middle seam: every frame ran seam rounds
+    expect = [12] * BATCH if impl == "jnp" else [3] * BATCH
+    assert step.ccl_rounds().tolist() == expect
+
+
+def test_row_banded_output_shapes_do_not_depend_on_the_frames():
+    step, args, frames, gyro = banded_step(2)
+    (pipe,) = step.pipes
+    *bands, g = args
+    out = pipe(*args)
+    assert bool(out.detections.valid.any())
+    rng = np.random.default_rng(0)
+    for other in ([torch.full_like(b, 127) for b in bands],
+                  [torch.from_numpy(rng.integers(0, 256, b.shape,
+                                                 dtype=np.uint8))
+                   for b in bands]):
+        res = pipe(*other, g)
+        assert [x.shape for x in leaves(res)] == [x.shape for x in leaves(out)]
+        assert [x.dtype for x in leaves(res)] == [x.dtype for x in leaves(out)]
+        assert step.ccl_rounds().shape == (BATCH,)
+
+
+def test_row_banded_pipes_are_eager_on_the_cpu():
+    step, args, frames, gyro = banded_step(2)
+    (pipe,) = step.pipes
+    assert callable(pipe) and not isinstance(pipe, graph.CapturedStep)
+    assert pipe.ccl_rounds.dtype == torch.int32
+    one = [torch.device("cuda", 0)] * BANDS
+    assert tpar._one_card(one)
+    assert not tpar._one_card(one[:3] + [torch.device("cuda", 1)])
+    assert not tpar._one_card([torch.device("cpu")] * BANDS)
+
+
 def test_launch_tally_counts_each_replay():
     def kernel():
         build.count(kernel)
@@ -258,3 +358,29 @@ def test_new_frame_shape_captures_again(card):
     assert equal(out, step.module(top, gyro))
     # the second graph's warm-up calls, then its replay
     assert threshold_ccl_extract.launches == graph.WARMUP_STEPS + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qd", [2, 1])
+def test_row_banded_replay_equals_eager_bit_for_bit(card, qd):
+    from chalkydri_tpu_torch.ops.propagate import propagate_components_blocked
+
+    step, args, frames, gyro = banded_step(qd, device=card)
+    (pipe,) = step.pipes
+    assert isinstance(pipe, graph.CapturedStep)
+    other = (*(b ^ 1 for b in args[:-1]), args[-1] + 0.01)
+    inputs = [args, other]
+    eager, rounds = [], []
+    for x in inputs:
+        eager.append(pipe.module(*x))
+        rounds.append(pipe.module.ccl_rounds.clone())
+    first = pipe(*inputs[0])
+    propagate_components_blocked.launches = 0
+    for i in range(6):
+        assert equal(pipe(*inputs[i % 2]), eager[i % 2]), i
+        assert torch.equal(pipe.module.ccl_rounds, rounds[i % 2]), i
+    assert equal(first, eager[0])
+    assert len(pipe.graphs) == 1 and pipe.replays == 7
+    # a fixed number of gated seam rounds: 2 * bands + 2 B6 calls a band
+    assert propagate_components_blocked.launches == 6 * BANDS * (2 * BANDS + 2)
+    assert equal(step(*step.place(frames, gyro)), eager[0])

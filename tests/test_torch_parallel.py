@@ -75,6 +75,7 @@ from chalkydri_tpu_torch.parallel.pipeline import (
 )
 from chalkydri_tpu_torch.parallel.sharded_stages import (
     label_components_block_kernel,
+    label_components_block_kernel_rounds,
     sharded_adaptive_threshold,
     sharded_label_components,
 )
@@ -262,6 +263,7 @@ def test_band_kernel_ccl_equals_jax_block_pallas(seam_scene):
     _, h, w = tern.shape
     spec = P("data", "space", None)
 
+    @jax.jit  # one program: the eager shard_map dispatches op by op
     @partial(jax.shard_map, mesh=jmesh, in_specs=spec, out_specs=spec,
              check_vma=False)
     def run(block):
@@ -270,12 +272,15 @@ def test_band_kernel_ccl_equals_jax_block_pallas(seam_scene):
 
     want = np.asarray(run(jax.device_put(
         tern, frame_sharding(jmesh, spatial=True))))
-    reads = label_components_block_kernel.host_reads
     bands = place_frames(tmesh, tern, spatial=True)
-    got = gather_frames([label_components_block_kernel(g) for g in bands])
+    (labels, rounds), = [label_components_block_kernel_rounds(g)
+                         for g in bands]
+    got = gather_frames([labels])
     np.testing.assert_array_equal(got.numpy(), want)
-    # the tag crosses the seam, so the second band's labels were lowered
-    assert label_components_block_kernel.host_reads - reads >= 2
+    # the tag crosses the seam in both frames, so each frame ran a round
+    # in which the second band's labels were lowered
+    assert rounds.dtype == torch.int32 and rounds.shape == (2,)
+    assert (rounds >= 1).all()
 
 
 def test_band_kernel_ccl_follows_a_snake_across_every_seam():
@@ -286,11 +291,11 @@ def test_band_kernel_ccl_follows_a_snake_across_every_seam():
     tern = _serpentine_tern(64, 128, 6)
     bands = place_frames(make_mesh(["cpu"] * 4, space=4), tern,
                          spatial=True)[0]
-    reads = label_components_block_kernel.host_reads
-    got = gather_frames([label_components_block_kernel(bands,
-                                                       outer_rounds=100)])
+    labels, rounds = label_components_block_kernel_rounds(bands,
+                                                          outer_rounds=100)
+    got = gather_frames([labels])
     # one seam per round: far more rounds than a tag across a seam needs
-    assert label_components_block_kernel.host_reads - reads > 2 * 4 + 2
+    assert int(rounds[0]) > 2 * 4 + 2
     assert len(torch.unique(got[torch.from_numpy(tern) == 255])) == 1
     assert torch.equal(got, label_components_blocked(torch.from_numpy(tern)))
     want, conv = label_components_blocked_pallas(
