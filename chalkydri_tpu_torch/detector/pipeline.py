@@ -51,6 +51,7 @@ from chalkydri_tpu_torch.ops.threshold_ccl import (
 )
 from chalkydri_tpu_torch.utils.graph import CapturedStep
 from chalkydri_tpu_torch.utils.precision import full_fp32
+from chalkydri_tpu_torch.utils.tracing import stage
 
 MAX_DETECTIONS = 16
 EXTRACT_BLOCK_MAX_PIXELS = 540_000  # B1 up to here
@@ -90,7 +91,9 @@ def make_post_cluster(decode, refine: bool = True, quad_decimate: int = 2,
     """``finish(gray [B, H, W], clusters) -> Detections``: quad fit -> keep
     the best ``max_quad_candidates`` quads -> back to full-resolution
     coordinates (``quad_decimate=2``) -> refine -> decode -> rank by
-    decision margin -> per-id dedup -> compaction to ``max_detections``."""
+    decision margin -> per-id dedup -> compaction to ``max_detections``.
+    Inside a stamped step it stamps the ends of ``quad``, ``refine`` and
+    ``decode`` (``utils/tracing.py``)."""
 
     def finish(gray, clusters):
         quads = fit_quads(clusters.points, clusters.mask, clusters.valid)
@@ -103,8 +106,10 @@ def make_post_cluster(decode, refine: bool = True, quad_decimate: int = 2,
         if quad_decimate == 2:
             # decimated pixel c sits at full-resolution coordinate 2c + 0.5
             corners = corners * 2.0 + 0.5
+        stage("quad")
         if refine:
             corners = refine_quads(gray, corners, q_valid)
+        stage("refine")
         dec = decode(gray, corners, q_valid)
 
         margin = torch.where(dec.valid, dec.decision_margin, -1.0)
@@ -137,7 +142,7 @@ def make_post_cluster(decode, refine: bool = True, quad_decimate: int = 2,
             buf.scatter_(1, idx.expand_as(v), v)
             return buf[:, :max_detections]
 
-        return Detections(
+        dets = Detections(
             ids=compact(ids_s, -1),
             corners=compact(corners_s, 0.0),
             decision_margins=compact(margins_s, 0.0),
@@ -145,6 +150,8 @@ def make_post_cluster(decode, refine: bool = True, quad_decimate: int = 2,
             valid=compact(keep, False),
             dropped_points=clusters.dropped,
         )
+        stage("decode")
+        return dets
 
     return finish
 
@@ -228,10 +235,12 @@ class Detector(nn.Module):
         small = (decimate2(gray_batch) if self.quad_decimate == 2
                  else gray_batch.contiguous())
         black, white, payload, dropped = self.candidates(small)
+        stage("front")
         clusters = cluster_candidates_batched(
             black, white, payload, max_points=self.edge_cap,
             max_clusters=self.max_clusters, cluster_points=self.cluster_points,
             dropped=dropped)
+        stage("cluster")
         return self.finish(gray_batch, clusters)
 
     def program(self, gray_batch: torch.Tensor) -> Detections:

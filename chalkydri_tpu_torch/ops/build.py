@@ -29,7 +29,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("ccl_extract.cu", "segment_stats.cu", "threshold_ccl.cu",
-           "propagate.cu", "extract_blocked.cu")
+           "propagate.cu", "extract_blocked.cu", "stamp.cu")
 HEADERS = ("ccl_common.cuh", "union_find.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -62,6 +62,8 @@ _SIGNATURES = {
     # tern, labels, B, Hext, W, halo_top, halo_bottom, y_offset, black,
     # white, payload, stream
     "chalkydri_extract_band": [_P, _P, _I, _I, _I, _I, _I, _I] + [_P] * 4,
+    # out, slot, stream
+    "chalkydri_stage_stamp": [_P, _I, _P],
 }
 
 

@@ -49,6 +49,7 @@ from chalkydri_tpu_torch.solver.robot_pose import (
 )
 from chalkydri_tpu_torch.utils.graph import CapturedStep
 from chalkydri_tpu_torch.utils.precision import full_fp32
+from chalkydri_tpu_torch.utils.tracing import stage, step_stamps
 
 
 class VisionOutput(NamedTuple):
@@ -110,7 +111,10 @@ class VisionPipeline(nn.Module):
     detector, the frame solver and the per-camera intrinsics and
     robot->camera extrinsics (buffers). Frames are [B, H, W] uint8 GREY,
     or raw color in ``input_format``, converted on the frames' device
-    (``detector.grayscale.to_gray_device``)."""
+    (``detector.grayscale.to_gray_device``). On a card the step stamps
+    its stages (``utils/tracing.py``): entry, then ``front`` and
+    ``cluster`` (``Detector.detect``), ``quad``, ``refine`` and ``decode``
+    (``make_post_cluster``) and ``solve`` here."""
 
     def __init__(self, detector: Detector, solver: FrameSolver,
                  camera_params: torch.Tensor, robot_to_cam: SE3,
@@ -125,18 +129,22 @@ class VisionPipeline(nn.Module):
 
     @torch.no_grad()
     def forward(self, frames: torch.Tensor, gyro: torch.Tensor) -> VisionOutput:
-        dets = self.detector(to_gray_device(frames, fourcc=self.input_format))
-        res, n_tags = self.solver(dets, self.camera_params, self.rc_rot,
-                                  self.rc_t, gyro.to(torch.float32))
-        return VisionOutput(
-            pose_x=res.position[:, 0],
-            pose_y=res.position[:, 1],
-            pose_yaw=matrix_to_yaw(res.rotation),
-            std_devs=res.std_devs,
-            pose_valid=res.valid & (n_tags > 0),
-            tag_count=n_tags,
-            detections=dets,
-        )
+        with step_stamps(frames.device):
+            dets = self.detector(to_gray_device(frames,
+                                                fourcc=self.input_format))
+            res, n_tags = self.solver(dets, self.camera_params, self.rc_rot,
+                                      self.rc_t, gyro.to(torch.float32))
+            out = VisionOutput(
+                pose_x=res.position[:, 0],
+                pose_y=res.position[:, 1],
+                pose_yaw=matrix_to_yaw(res.rotation),
+                std_devs=res.std_devs,
+                pose_valid=res.valid & (n_tags > 0),
+                tag_count=n_tags,
+                detections=dets,
+            )
+            stage("solve")
+        return out
 
 
 def make_vision_pipeline(

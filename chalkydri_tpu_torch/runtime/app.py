@@ -42,6 +42,7 @@ from chalkydri_tpu_torch.io.whacknet import Comm, RobotPose, VisionUncertainty
 from chalkydri_tpu_torch.runtime.clock import RobotClock, Stamped
 from chalkydri_tpu_torch.runtime.graph import TaskGraph
 from chalkydri_tpu_torch.runtime.tasks import REGISTRY, ResourceManager
+from chalkydri_tpu_torch.utils import tracing
 from chalkydri_tpu_torch.utils.platform import resolve_device
 
 FUSED_SINK_TYPES = {"AprilTags", "chalkydri_apriltags::AprilTags"}
@@ -102,12 +103,13 @@ class FusedGroup:
 
 class _HostCopy(NamedTuple):
     """A step's per-camera scalars (and, with detection observers, its
-    detections) on their way to host memory; ``event`` (None on the CPU)
-    completes when they have landed."""
+    detections; on a card its stage stamps) on their way to host memory;
+    ``event`` (None on the CPU) completes when they have landed."""
 
     small: torch.Tensor  # [B, 9] int32 (_start_fetch's packing)
     dets: Optional[tuple]  # (ids, corners, margins, valid) or None
     event: Optional[torch.cuda.Event]
+    stamps: Optional[tuple] = None  # (pinned int64 stamps, their card)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -232,6 +234,7 @@ class App:
 
         self.pipeline_depth = pipeline_depth
         self._in_flight = None
+        self._fetched_stamps: list = []  # (pinned stamps, card) to record
         self._started = False
         self._frame_observers: list = []
         self._detection_observers: list = []
@@ -603,6 +606,7 @@ class App:
             for b, ch in enumerate(g.chains):
                 fresh, tov = states[b]
                 self._publish_with(ch, host_out, b, fresh, tov)
+        self._record_fetched_stamps()
 
     def stop_all_tasks(self) -> None:
         self._flush_in_flight()
@@ -706,8 +710,9 @@ class App:
         """Queue the step's per-camera scalars (packed into one [B, 9]
         int32 tensor: float32 bits, then valid / tag_count / dropped) and,
         with detection observers, its detections for the host, behind the
-        step on its stream; on a card into pinned memory, with an event
-        after the copies."""
+        step on its stream; on a card into pinned memory, with the step's
+        stage stamps (``utils/tracing.py``) and an event after the copies."""
+        stamps = tracing.take_stamps()
         floats = torch.cat([torch.stack([out.pose_x, out.pose_y,
                                          out.pose_yaw], 1),
                             out.std_devs], 1).to(torch.float32)
@@ -729,20 +734,25 @@ class App:
         small = pinned(small)
         if dets is not None:
             dets = tuple(pinned(x) for x in dets)
+        if stamps is not None:
+            stamps = (pinned(stamps), stamps.device)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(out.pose_x.device))
-        return _HostCopy(small, dets, event)
+        return _HostCopy(small, dets, event, stamps)
 
     def _fetch_small(self, out, copy: Optional[_HostCopy] = None):
         """(``out`` with its per-camera scalars as numpy arrays, detections
         as numpy arrays or None). Waits on ``copy``'s event only (queued by
         ``_start_fetch`` at dispatch; made here when not given): never on
         the whole stream, so a step queued after ``out`` keeps running.
-        The large detections tensors stay on the device."""
+        The large detections tensors stay on the device. The step's stage
+        stamps, where it has them, wait for ``_record_fetched_stamps``."""
         if copy is None:
             copy = self._start_fetch(out)
         if copy.event is not None:
             copy.event.synchronize()
+        if copy.stamps is not None:
+            self._fetched_stamps.append(copy.stamps)
         small = copy.small.numpy()
         f = np.ascontiguousarray(small[:, :6]).view(np.float32)
         host_out = out._replace(
@@ -755,6 +765,14 @@ class App:
         if copy.dets is not None:
             dets = tuple(x.numpy() for x in copy.dets)
         return host_out, dets
+
+    def _record_fetched_stamps(self) -> None:
+        """Record the stage stamps fetched since the last call in ``SPANS``
+        (``step.*``, ``utils/tracing.py``): after the publish, so that the
+        packets do not wait for it."""
+        for stamps, device in self._fetched_stamps:
+            tracing.record_stages(stamps, device)
+        self._fetched_stamps.clear()
 
     def _publish_with(self, ch: FusedChain, out, b: int, fresh: bool,
                       tov: Optional[int]) -> None:
@@ -912,6 +930,7 @@ class App:
                         for obs in self._detection_observers:
                             obs(ch.cam_id, ids[b][keep], corners[b][keep],
                                 margins[b][keep])
+            self._record_fetched_stamps()
 
         # Generic host tasks in topological order.
         from chalkydri_tpu_torch.io.camera import CamPipeline

@@ -7,12 +7,15 @@ For each path of ``chip_smoke.py`` (``quad_decimate=2`` on the bench scene,
 step over four bands on the spatial scene at both, ``tools/scenes``) it
 prints, one line each:
 
-- every stage of the step alone, between two ``torch.cuda.synchronize()``:
-  host ms, median of N runs after a warm-up (decimation, the CCL kernel of
-  the path, extraction and compaction, clustering, the post-cluster tail,
-  unprojection + solve, the whole step; for the row-banded step its front
-  end: placement, decimation + halo threshold, band CCL, band extraction,
-  compaction over bands, and the whole step);
+- on the single-card paths, the device ms of each stage of the replayed
+  step, from the step's own stamps (``utils/tracing.py``: ``step.front``,
+  ``step.cluster``, ``step.quad``, ``step.refine``, ``step.decode``,
+  ``step.solve`` and ``step.span``), median of N replays after a warm-up;
+  the row-banded step has no stamps, so there each front-end stage alone,
+  between two ``torch.cuda.synchronize()``: host ms, median of N runs
+  (placement, decimation + halo threshold, band CCL, band extraction,
+  compaction over bands, and the whole eager step); on every path the
+  whole replayed step on the host clock;
 - a ``torch.profiler`` window over 3 steps: wall ms, the device kernel
   time, the device's busy share and the host's launches per step
   (kernels, CUDA graphs, copies), for the eager step (the captured
@@ -66,60 +69,20 @@ def _host_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
-def stage_times(step, frames, gyro, runs: int) -> dict[str, float]:
-    """Host ms of each stage alone, by the detector's own dispatch."""
-    from chalkydri_tpu_torch.detector import pipeline as det_mod
-    from chalkydri_tpu_torch.detector.cluster import (
-        cluster_candidates_batched,
-        compact_candidates,
-        extract_and_compact,
-    )
+def replayed_stage_ms(step, frames, gyro, runs: int) -> dict[str, float]:
+    """Device ms of each stage of the replayed step (a ``CapturedStep`` of
+    ``VisionPipeline``), by its own stamps: the median of each ``step.*``
+    record over ``runs`` replays after a warm-up."""
+    from chalkydri_tpu_torch.utils import tracing
 
-    det = step.detector
-    out = {}
-
-    def preprocess():
-        return (det_mod.decimate2(frames) if det.quad_decimate == 2
-                else frames.contiguous())
-
-    out["decimate"] = _host_ms(preprocess, runs)
-    small = preprocess()
-    h, w = small.shape[1], small.shape[2]
-    iters, cap = det.ccl_iters, det.edge_cap
-    if h * w <= det_mod.EXTRACT_BLOCK_MAX_PIXELS:
-        out["B1 threshold+CCL+extract"] = _host_ms(
-            lambda: det_mod.threshold_ccl_extract(small, iters=iters), runs)
-        cands = det_mod.threshold_ccl_extract(small, iters=iters)
-        out["compaction"] = _host_ms(
-            lambda: compact_candidates(*cands, width=w, max_points=cap), runs)
-    else:
-        name, ccl = (("B3 threshold+CCL", lambda: det_mod.threshold_ccl(
-                         small, iters=iters))
-                     if h * w <= det_mod.SINGLE_BLOCK_MAX_PIXELS else
-                     ("B5 threshold+exact CCL",
-                      lambda: det_mod.threshold_ccl_exact(small)))
-        out[name] = _host_ms(ccl, runs)
-        tern, labels = ccl()
-        out["extraction+compaction"] = _host_ms(
-            lambda: extract_and_compact(tern, labels, max_points=cap), runs)
-    black, white, payload, dropped = det.candidates(small)
-
-    def cluster():
-        return cluster_candidates_batched(
-            black, white, payload, max_points=cap,
-            max_clusters=det.max_clusters, cluster_points=det.cluster_points,
-            dropped=dropped)
-
-    out["clustering (sort + B2 + rank + windows)"] = _host_ms(cluster, runs)
-    clusters = cluster()
-    out["post-cluster tail"] = _host_ms(lambda: det.finish(frames, clusters),
-                                        runs)
-    dets = det.finish(frames, clusters)
-    out["unproject + solve"] = _host_ms(
-        lambda: step.solver(dets, step.camera_params, step.rc_rot, step.rc_t,
-                            gyro), runs)
-    out["whole step"] = _host_ms(lambda: step(frames, gyro), runs)
-    return out
+    step(frames, gyro)
+    spans = tracing.SpanStats()
+    for _ in range(runs):
+        step(frames, gyro)
+        stamps = tracing.take_stamps()
+        tracing.record_stages(stamps.cpu(), stamps.device, spans)
+    return {name: statistics.median(v) * 1e3
+            for name, v in spans.samples.items()}
 
 
 def band_stage_times(step, place, frames, gyro, qd: int, edge_cap: int,
@@ -475,7 +438,7 @@ def main() -> None:
         else:
             step = make_vision_pipeline(layout, params, rc, device=dev,
                                         detector_kwargs={"quad_decimate": qd})
-            stages = stage_times(step.module, frames, gyro, args.runs)
+            stages = replayed_stage_ms(step, frames, gyro, args.runs)
             share = device_share(step.module, frames, gyro)
             stages["whole step, replayed"] = _host_ms(
                 lambda: step(frames, gyro), args.runs)

@@ -37,6 +37,12 @@ The kernel wrappers' launch counts (``.launches`` and the like) count
 the launches a graph recorded at each of its replays
 (``ops/build.py::count``); the warm-up calls count as the eager launches
 they are.
+
+A module that stamps its stages (``utils/tracing.py::step_stamps``) leaves
+its stamp buffer in the graph; each replay hands a fresh copy of it on
+(``tracing.take_stamps``), and the first capture on a card measures the
+card's clock map. Each call is recorded as the ``graph.replay`` span: the
+lock, the copy in, the replay, the copies out and the event.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from typing import NamedTuple
 import torch
 
 from chalkydri_tpu_torch.ops import build
+from chalkydri_tpu_torch.utils import tracing
 
 WARMUP_STEPS = 2  # eager calls on the capture stream before a capture
 
@@ -67,6 +74,7 @@ class Captured(NamedTuple):
     tally: dict  # {(kernel wrapper, counter name): launches a replay}
     warmup_ms: float  # host ms of the WARMUP_STEPS eager calls
     capture_ms: float  # host ms of the capture and the graph's instantiation
+    stamps: torch.Tensor | None  # the graph's stage stamps, if it stamps
 
 
 def _card_state(device: torch.device):
@@ -158,26 +166,33 @@ class CapturedStep:
             side.synchronize()
             t1 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
+            tracing.take_stamps()  # drop an earlier step's
             with build.capture_tally() as tally, torch.cuda.graph(
                     graph, pool=pool, stream=side,
                     capture_error_mode="thread_local"):
                 outputs = self.module(*inputs)
+            stamps = tracing.take_stamps()
             t2 = time.perf_counter()
             torch.cuda.current_stream().wait_stream(side)
+            if stamps is not None:
+                tracing.clock_map(self.device)
             entry = Captured(graph, inputs, outputs, tally,
-                             (t1 - t0) * 1e3, (t2 - t1) * 1e3)
+                             (t1 - t0) * 1e3, (t2 - t1) * 1e3, stamps)
             self.graphs[key] = entry
             return entry
 
     def _replay(self, entry: Captured, args):
         _, (lock, done) = _card_state(self.device)
-        with lock, torch.no_grad(), torch.cuda.device(self.device):
+        with tracing.span("graph.replay"), lock, torch.no_grad(), \
+                torch.cuda.device(self.device):
             stream = torch.cuda.current_stream()
             stream.wait_event(done)
             for static, a in zip(entry.inputs, args):
                 static.copy_(a)
             entry.graph.replay()
             out = _map(torch.clone, entry.outputs)
+            if entry.stamps is not None:
+                tracing.hand_stamps(entry.stamps.clone())
             done.record(stream)
             build.add_tally(entry.tally)
             self.replays += 1
