@@ -12,6 +12,13 @@ Byte-compatible rebuild of the reference's ``whacknet`` crate
   (lib.rs:112-130),
 - a dedicated sender thread draining a queue (lib.rs:135-141) and a listener
   thread for the gyro, with clean shutdown via a sentinel (lib.rs:180-185).
+  A packet with nothing queued or in flight before it is sent at once from
+  the publishing thread by a non-blocking send on the sender's own socket
+  (one source port, as the reference); the queue and the sender thread
+  serve only a send that would block (socket backpressure), so packets
+  keep their order and ``publish`` never blocks. Tests force that path by
+  a socket whose non-blocking send would block
+  (``tests/test_torch_io.py``).
 
 A C++ fast path (chalkydri_tpu_torch/native/src/whacknet.cpp) provides the same
 send/recv loop without the GIL; this module transparently uses it when the
@@ -30,6 +37,7 @@ from dataclasses import dataclass
 DEFAULT_SEND_PORT = 7001  # whacknet/src/lib.rs:14
 GYRO_PORT = 7002  # whacknet/src/lib.rs:113
 PACKET_SIZE = 64
+_DONTWAIT = getattr(socket, "MSG_DONTWAIT", 0)  # 0: every send is queued
 # <  little-endian; 6 doubles, u64 ts, 2 u8, 6 pad bytes
 _PACK = struct.Struct("<6dQ2B6x")
 assert _PACK.size == PACKET_SIZE
@@ -159,6 +167,9 @@ class Comm:
         self._gyro_thread.start()
 
         self._queue: queue.Queue[bytes | None] = queue.Queue()
+        self._send_lock = threading.Lock()
+        self._pending = 0  # packets queued or in the sender's hands
+        self._send_sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
         self._send_thread = threading.Thread(
             target=self._send_loop, daemon=True, name="whacknet-send"
         )
@@ -181,16 +192,17 @@ class Comm:
         self._gyro_sock.close()
 
     def _send_loop(self):
-        sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
         while True:
             item = self._queue.get()
             if item is None:
                 break
             try:
-                sock.sendto(item, self._remote)
+                self._send_sock.sendto(item, self._remote)
             except OSError:
                 pass
-        sock.close()
+            with self._send_lock:
+                self._pending -= 1
+        self._send_sock.close()
 
     # -- API (parity with whacknet/src/lib.rs:152-178) ----------------------
 
@@ -199,8 +211,17 @@ class Comm:
         payload = encode_measurement(pose, std_devs, ts_us, cam_id, tag_count)
         if self._native is not None:
             self._native.send(payload)
-        else:
-            self._queue.put(payload)
+            return
+        with self._send_lock:
+            if self._pending == 0 and _DONTWAIT:
+                try:
+                    if self._send_sock.sendto(payload, _DONTWAIT,
+                                              self._remote) == len(payload):
+                        return
+                except OSError:  # would block (or failed): the queue's turn
+                    pass
+            self._pending += 1
+        self._queue.put(payload)
 
     def gyro_angle(self) -> float | None:
         if self._native is not None:

@@ -5,7 +5,9 @@ The host-side runtime pieces are first-party C++ (``native/src``) built as
 one shared library with ``make`` and bound through ``ctypes``. The build
 runs on first use, never at import, into
 ``chalkydri_tpu_torch/_build/native/`` (ignored by git), so the source tree
-stays clean. Callers fall back to pure-Python paths when no C++ compiler
+stays clean. The library's name carries a hash of ``src/`` and the
+Makefile, so a changed source builds anew rather than reusing an old
+library. Callers fall back to pure-Python paths when no C++ compiler
 is present.
 
 Build by hand: ``make -C chalkydri_tpu_torch/native``.
@@ -14,27 +16,39 @@ Build by hand: ``make -C chalkydri_tpu_torch/native``.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build", "native")
-_LIB_PATH = os.path.join(BUILD_DIR, "libchalkydri_native.so")
+_SRC_DIR = os.path.join(_DIR, "src")
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
+def library_path() -> str:
+    """The library's path for the sources as they are now."""
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(_SRC_DIR)) + ["../Makefile"]:
+        h.update(name.encode())
+        with open(os.path.join(_SRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libchalkydri_native_{h.hexdigest()[:16]}.so")
+
+
 def build_native(force: bool = False) -> str | None:
-    """Compile the shared library with make/g++ into ``BUILD_DIR``.
-    Returns the path or None."""
-    if os.path.exists(_LIB_PATH) and not force:
-        return _LIB_PATH
+    """Compile the shared library with make/g++ into ``BUILD_DIR``, unless
+    one for these sources is there. Returns the path or None."""
+    path = library_path()
+    if os.path.exists(path) and not force:
+        return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     # A temporary name per process and thread, then one rename: processes
     # that build at the same time never load a half-written library.
-    tmp = f"{_LIB_PATH}.{os.getpid()}.{threading.get_ident()}.tmp"
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
         subprocess.run(
             ["make", "-C", _DIR, "-s", "-B", f"TARGET={tmp}"],
@@ -42,12 +56,12 @@ def build_native(force: bool = False) -> str | None:
             capture_output=True,
             timeout=120,
         )
-        os.replace(tmp, _LIB_PATH)
+        os.replace(tmp, path)
     except (OSError, subprocess.CalledProcessError, subprocess.TimeoutExpired):
         if os.path.exists(tmp):
             os.remove(tmp)
         return None
-    return _LIB_PATH
+    return path
 
 
 def load_native():

@@ -3,7 +3,14 @@
 // C++ rebuild of the reference's whacknet crate threading model
 // (crates/whacknet/src/lib.rs:100-185): a sender thread
 // draining a queue (so publish() never blocks the vision hot path) and a
-// gyro listener thread keeping the latest heading. Exposed as a C API for
+// gyro listener thread keeping the latest heading. A packet with nothing
+// queued or in flight before it leaves at once from the publishing thread
+// by a non-blocking sendto on the same socket; the queue and the sender
+// thread serve only a send that would block (socket backpressure), which
+// keeps delivery and order then. Waking the sender thread cost 0.4-1.6 ms
+// a packet (median) on a loaded host, and up to tens of ms. A loopback
+// UDP send does not block, so the tests drive the queue only on the Python
+// path (io/whacknet.py), whose logic is the same. Exposed as a C API for
 // ctypes (a plain C interface, no Python headers); holds no Python state and never
 // touches the GIL.
 
@@ -33,6 +40,7 @@ struct Channel {
   std::mutex mu;
   std::condition_variable cv;
   std::deque<std::vector<unsigned char>> queue;
+  bool sending = false;  // the sender thread holds a packet (under mu)
   std::atomic<bool> running{false};
   std::atomic<double> gyro_value{0.0};
   std::atomic<bool> gyro_seen{true};  // starts Some(0.0) like the reference
@@ -51,9 +59,12 @@ void sender_loop(Channel* ch) {
       if (!ch->running && ch->queue.empty()) return;
       pkt = std::move(ch->queue.front());
       ch->queue.pop_front();
+      ch->sending = true;
     }
     (void)sendto(ch->send_fd, pkt.data(), pkt.size(), 0,
                  reinterpret_cast<sockaddr*>(&ch->remote), sizeof(ch->remote));
+    std::lock_guard<std::mutex> lk(ch->mu);
+    ch->sending = false;
   }
 }
 
@@ -137,6 +148,11 @@ int whacknet_send(int handle, const unsigned char* data, int len) {
   if (ch == nullptr || len <= 0 || len > kMaxPacket) return -1;
   {
     std::lock_guard<std::mutex> lk(ch->mu);
+    // In order: straight out when nothing is queued or in flight before it.
+    if (ch->queue.empty() && !ch->sending &&
+        sendto(ch->send_fd, data, len, MSG_DONTWAIT,
+               reinterpret_cast<sockaddr*>(&ch->remote), sizeof(ch->remote)) == len)
+      return 0;
     // Bounded queue: drop-oldest under backpressure, like the reference's
     // depth-1 appsink policy (SURVEY.md section 5.3).
     if (ch->queue.size() >= 64) ch->queue.pop_front();

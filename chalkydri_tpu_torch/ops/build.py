@@ -29,7 +29,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("ccl_extract.cu", "segment_stats.cu", "threshold_ccl.cu",
-           "propagate.cu", "extract_blocked.cu", "stamp.cu")
+           "propagate.cu", "extract_blocked.cu", "stamp.cu", "solve.cu")
 HEADERS = ("ccl_common.cuh", "union_find.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -64,6 +64,8 @@ _SIGNATURES = {
     "chalkydri_extract_band": [_P, _P, _I, _I, _I, _I, _I, _I] + [_P] * 4,
     # out, slot, stream
     "chalkydri_stage_stamp": [_P, _I, _P],
+    # ptrs, ints, reals (csrc/solve.cu lists their entries), stream
+    "chalkydri_solve": [_P] * 4,
 }
 
 

@@ -18,6 +18,9 @@ layout of its own with two tags 0.6 m before the camera.
 through a lens with distortion, from random poses, for the calibration
 path.
 
+``projected_detections`` gives the detections of chosen tags without
+rendering, for the solver's checks.
+
 ``serpentine``, ``blob_tern`` and ``mixed_terns`` are ternary pages that
 stress the capped CCL rounds (kernels B1, B3 and B4), at the shapes
 ``CCL_STRESS_SHAPES``; the card run and the CPU tests against the JAX
@@ -183,6 +186,46 @@ def render_scene(layout, rig_rc, robot_x, robot_y, robot_yaw, calib: dict,
             raise AssertionError(f"tag {tid} is not inside the frame: {pix}")
         place_tag(canvas, render_tag(fam, tid, cell_px=cell_px), cell_px, pix)
     return canvas
+
+
+def projected_detections(layout, rig_rc, robot, calib: dict, slots,
+                         capacity: int = 16):
+    """Detections of tag ids ``slots[b]`` (slot order; at most
+    ``capacity``) as camera 0 of ``rig_rc`` sees them from ``robot`` (x m,
+    y m, yaw rad) through the pinhole of ``calib``: the exact projected
+    corners, no rendering, on the CPU. An id the layout lacks takes the
+    previous slot's corners moved 40 px right. For the solver's checks."""
+    from chalkydri_tpu_torch.detector.pipeline import Detections
+    from chalkydri_tpu_torch.geometry.tags import corners_world
+
+    x, y, yaw = robot
+    c, s = math.cos(yaw), math.sin(yaw)
+    w2r_rot = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1]])
+    w2r_t = -w2r_rot @ np.array([x, y, 0.0])
+    rc_rot = rig_rc.rotation[0].double().cpu().numpy()
+    rc_t = rig_rc.translation[0].double().cpu().numpy()
+    b = len(slots)
+    ids = np.full((b, capacity), -1, np.int32)
+    corners = np.zeros((b, capacity, 4, 2))
+    for f, tags in enumerate(slots):
+        for k, tid in enumerate(tags):
+            ids[f, k] = tid
+            if tid < len(layout.present) and bool(layout.present[tid]):
+                pose = layout.tag_pose(torch.tensor(tid))
+                pose = type(pose)(pose.rotation.double().cpu(),
+                                  pose.translation.double().cpu())
+                cw = corners_world(pose).numpy()
+                pc = rc_rot @ (w2r_rot @ cw.T + w2r_t[:, None]) + rc_t[:, None]
+                corners[f, k] = np.stack(
+                    [calib["fx"] * pc[0] / pc[2] + calib["cx"],
+                     calib["fy"] * pc[1] / pc[2] + calib["cy"]], axis=1)
+            else:
+                corners[f, k] = corners[f, k - 1] + [40.0, 0.0]
+    ids_t = torch.from_numpy(ids)
+    return Detections(ids_t, torch.from_numpy(corners).float(),
+                      torch.full((b, capacity), 50.0),
+                      torch.zeros((b, capacity), dtype=torch.int32),
+                      ids_t >= 0, torch.zeros(b, dtype=torch.int32))
 
 
 def load_scene(name: str, device):

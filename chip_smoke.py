@@ -46,7 +46,17 @@
    without rows, widths that are no multiple of 4 or 16, snakes through
    every CTA, the last band of the cluster route and one row over it,
    which takes B6's global-memory route; B7 with halos of 0-2 rows, an
-   input off 16-byte alignment, ``y_offset`` at the 13-bit limit);
+   input off 16-byte alignment, ``y_offset`` at the 13-bit limit); the
+   solve kernel (``ops/solve.py``: ``FrameSolver`` in one launch) against
+   the plain chain, float32, bit for bit at the cells' shape [2, 16] (the
+   benchmark configurations' drives, ``benchmark/scene.py``, both
+   cameras, 5 seeds of each; edge cases: no tags, one tag, every slot
+   full, unknown ids, non-finite corners, a failed undistortion), and at
+   B = 1 (the oracle's 16 seeds, the planar mirror's 6 orderings) within
+   POSE_TOL m and ROT_TOL, its std-devs no further from the float64 plain
+   chain than twice the float32 twin's; its double instance against
+   ``tests/reference_impl/ref_sqpnp.py`` at the 1e-9 gates (a unit
+   pinhole); and its time beside its bound and the plain chain's;
 5. drives four paths through the entry points (``build_rig_from_config``
    -> ``make_vision_pipeline`` / ``make_sharded_vision_pipeline``), each
    with the launch counts set to 0 just before it and read just after
@@ -60,7 +70,8 @@
    (B6 on its cluster route only, B7, B2; the step a replay of one CUDA
    graph, its band CCL's seam rounds gated on the card: a fixed tally a
    replay of one B6 label call, ``2 * bands + 2`` B6 propagate calls and
-   one B7 call a band, and one B2 call). Each checks the ids and each
+   one B7 call a band, and one B2 call); every path also one launch of
+   the solve kernel a step. Each checks the ids and each
    frame's pose against its own truth and that every kernel of the path
    launched, compares the step with the same step run on the plain twins
    only (the eager module's), and times both; the row-banded step is
@@ -87,8 +98,8 @@
    ``tools/bench_scene.npz`` with the JAX package's outputs): its CPU
    denominator, then ``bench_gpu`` (its capture, a round of
    ``BENCH_ITERS`` eager steps, ``BENCH_REPS`` rounds of replays) with
-   the launch counts set to 0 just before (exactly one B1 and one B2 a
-   step, eager or replayed, no other kernel), the card's replayed output
+   the launch counts set to 0 just before (exactly one B1, one B2 and one
+   solve a step, eager or replayed, no other kernel), the card's replayed output
    held to the stored JAX outputs; prints the twin's JSON line;
 9. drives the runtime App (``runtime.app.App``) at the deployed rig: two
    1600x1304 cameras on mounts 0.3 m apart seeing tags 28-31 from one
@@ -97,8 +108,8 @@
    double, packets read from a loopback socket; at ``pipeline_depth`` 1
    and 0 every packet must carry 4 tags and a position within 0.02 m,
    every frame a pose packet, every poll without a frame a heartbeat, and
-   every dispatched step exactly one B1 and one B2 launch (counts set to
-   0 just before; the step is a replay); the App's outputs equal the
+   every dispatched step exactly one B1, one B2 and one solve launch
+   (counts set to 0 just before; the step is a replay); the App's outputs equal the
    rig's eager step's bit for bit; it prints
    the App's rate, the host p50/p90 of its spans, the packets' latency
    field and the upload time of one staged batch; then
@@ -240,8 +251,9 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
 
 
 class plain_twins:
-    """Within this context the detector calls the kernels' plain twins on
-    CUDA tensors (the module attributes its functions look up per call)."""
+    """Within this context the detector and the solver call the kernels'
+    plain twins on CUDA tensors (the module attributes the detector's
+    functions look up per call, and ``FrameSolver.forward``)."""
 
     def __enter__(self):
         import chalkydri_tpu_torch.detector.cluster as cluster
@@ -261,8 +273,10 @@ class plain_twins:
             threshold_ccl_exact_plain,
             threshold_ccl_plain,
         )
+        from chalkydri_tpu_torch.pipeline import FrameSolver
 
-        self._saved = [(det, "threshold_ccl_extract", det.threshold_ccl_extract),
+        self._saved = [(FrameSolver, "forward", FrameSolver.forward),
+                       (det, "threshold_ccl_extract", det.threshold_ccl_extract),
                        (det, "threshold_ccl", det.threshold_ccl),
                        (det, "threshold_ccl_exact", det.threshold_ccl_exact),
                        (cluster, "segment_stats", cluster.segment_stats),
@@ -272,6 +286,7 @@ class plain_twins:
                         stages.propagate_components_blocked),
                        (par, "extract_candidates_band",
                         par.extract_candidates_band)]
+        FrameSolver.forward = FrameSolver.forward_plain
         det.threshold_ccl_extract = threshold_ccl_extract_plain
         det.threshold_ccl = threshold_ccl_plain
         det.threshold_ccl_exact = threshold_ccl_exact_plain
@@ -285,6 +300,469 @@ class plain_twins:
         for mod, name, fn in self._saved:
             setattr(mod, name, fn)
         return False
+
+
+# The solve kernel's checks: the benchmark configurations' scenes at these
+# seeds, each drive of 14 poses seen by both cameras.
+SOLVE_CONFIGS = ("comp2-1600x1304-qd2", "comp2-1600x1304-qd1")
+SOLVE_SEEDS = (2147483711, 3000000019, 4052555153, 5000000111, 6442450967)
+# tests/test_solver.py::test_matches_numpy_reference's seeds by tag count
+ORACLE_SEEDS = ((2, (0, 1, 2, 3, 4, 7, 8, 9)), (3, (0, 1, 2, 3, 4, 5, 7, 8)))
+ORACLE_TOL = 1e-9  # tests/test_torch_gates.py's position, rotation, std
+ROT_TOL = 1e-3  # largest gap of a rotation entry off the cells' shape
+# Off the cells' shape, the kernel's std-devs may be at most this many
+# times as far from the float64 plain chain as the float32 twin's are:
+# both round the fit's energy, which they scale by (a sum that cancels to
+# a small residual), in other orders.
+STD_NOISE_FACTOR = 2.0
+
+
+def _bits(x):
+    """x as integers of its width, so NaNs of one payload compare equal."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return x.view(ints[x.dtype]) if x.dtype in ints else x
+
+
+def _std_gap(got, want) -> float:
+    """Largest relative gap of std-devs; a huge value (rms over 0.1: the
+    pose is not to be trusted) on one side only is a gap of 1."""
+    big_g, big_w = got.abs() > 1e30, want.abs() > 1e30
+    if bool((big_g != big_w).any()):
+        return 1.0
+    keep = ~big_w
+    if not bool(keep.any()):
+        return 0.0
+    g, w = got[keep].double(), want[keep].double()
+    return float(((g - w).abs() / w.abs()).max())
+
+
+class SolveGaps:
+    """The kernel's solve against the plain twin's, frame by frame. Every
+    frame must agree on ``valid`` and the tag count. With ``exact`` (the
+    cells' shape, where ``correct`` rests on it) every frame must be bit
+    for bit the twin's. Elsewhere the largest gaps are kept and gated:
+    position POSE_TOL m, rotation entries ROT_TOL, and std-devs against
+    the float64 plain chain (``anchor``): the kernel's largest relative
+    gap at most STD_NOISE_FACTOR times the float32 twin's own. ``abs_err``
+    is the largest absolute gap of rotation, position and std-devs over
+    every frame compared."""
+
+    def __init__(self, exact: bool):
+        self.exact = exact
+        self.frames = self.same = 0
+        self.pos = self.rot = self.std = self.abs_err = 0.0
+        self.std_kernel = self.std_twin = 0.0  # from the float64 chain
+        self.anchored = 0  # valid frames held to the float64 chain
+        self.differ = []  # the labels of the frames that are not
+
+    def add(self, label, got, n_got, want, n_want, anchor=None) -> None:
+        import torch
+
+        keys = ("rotation", "position", "std_devs")
+        for f in range(got.valid.shape[0]):
+            self.frames += 1
+            if int(n_got[f]) != int(n_want[f]):
+                raise AssertionError(f"{label} frame {f}: tag count "
+                                     f"{int(n_got[f])}, twin {int(n_want[f])}")
+            if bool(got.valid[f]) != bool(want.valid[f]):
+                raise AssertionError(f"{label} frame {f}: valid "
+                                     f"{bool(got.valid[f])}, twin "
+                                     f"{bool(want.valid[f])}")
+            if anchor is not None and bool(want.valid[f]):
+                self.anchored += 1
+                self.std_kernel = max(self.std_kernel, _std_gap(
+                    got.std_devs[f], anchor.std_devs[f]))
+                self.std_twin = max(self.std_twin, _std_gap(
+                    want.std_devs[f], anchor.std_devs[f]))
+            if all(torch.equal(_bits(getattr(got, k)[f]),
+                               _bits(getattr(want, k)[f])) for k in keys):
+                self.same += 1
+                continue
+            self.differ.append(f"{label} frame {f}")
+            gaps = [float((getattr(got, k)[f].double()
+                           - getattr(want, k)[f].double()).abs()
+                          .nan_to_num(0.0, 0.0, 0.0).max()) for k in keys]
+            self.rot = max(self.rot, gaps[0])
+            self.pos = max(self.pos, gaps[1])
+            self.abs_err = max(self.abs_err, *gaps)
+            self.std = max(self.std, _std_gap(got.std_devs[f],
+                                              want.std_devs[f]))
+
+    def line(self) -> str:
+        out = f"{self.same} of {self.frames} frames bit-identical"
+        if self.same != self.frames:
+            out += (f"; the others ({'; '.join(self.differ[:8])}) within "
+                    f"position {self.pos:.3e} m, rotation {self.rot:.3e}, "
+                    f"std-devs {self.std:.3e} relative")
+        if self.anchored:
+            out += (f"; std-devs from the float64 plain chain on "
+                    f"{self.anchored} valid frames: kernel "
+                    f"{self.std_kernel:.3e}, float32 twin "
+                    f"{self.std_twin:.3e} relative")
+        return out + " (valid and tag counts equal)"
+
+    def check(self, label) -> None:
+        if self.exact and self.same != self.frames:
+            raise AssertionError(f"{label}: {self.line()}, where every frame "
+                                 f"must be bit-identical")
+        if self.pos > POSE_TOL or self.rot > ROT_TOL:
+            raise AssertionError(f"{label}: {self.line()}: position over "
+                                 f"{POSE_TOL} m or rotation over {ROT_TOL}")
+        if self.same != self.frames and self.std > 0 and not self.anchored:
+            raise AssertionError(f"{label}: std-devs differ with no float64 "
+                                 f"chain to hold them to")
+        if self.std_kernel > STD_NOISE_FACTOR * self.std_twin:
+            raise AssertionError(f"{label}: {self.line()}: the kernel's "
+                                 f"std-devs over {STD_NOISE_FACTOR} times "
+                                 f"the twin's gap")
+
+
+def solve_both(solver, dets, cam, rc_rot, rc_t, gyro, anchor=False):
+    """(kernel, its n_tags, twin, its n_tags[, the float64 plain chain]):
+    ``FrameSolver`` on the card and its plain twin on the same inputs;
+    with ``anchor`` also the plain chain in float64."""
+    import copy
+
+    import torch
+
+    with torch.no_grad():
+        got, n_got = solver(dets, cam, rc_rot, rc_t, gyro)
+        want, n_want = solver.forward_plain(dets, cam, rc_rot, rc_t, gyro)
+        if not anchor:
+            return got, n_got, want, n_want
+        s64 = copy.deepcopy(solver).double()
+        d64 = dets._replace(corners=dets.corners.double(),
+                            decision_margins=dets.decision_margins.double())
+        ref, _ = s64.forward_plain(d64, cam.double(), rc_rot.double(),
+                                   rc_t.double(), gyro.double())
+    return got, n_got, want, n_want, ref
+
+
+def oracle_scene(rng, n_tags):
+    """tests/test_solver.py::make_scene in numpy (the same draws): tags 1.5-4
+    m before a camera at the origin, their world isometries, the rays of
+    their corners and the world->camera transform."""
+    import scipy.spatial.transform as sst
+
+    from chalkydri_tpu_torch.solver.robot_pose import TAG_SIZE
+
+    ref = reference_module()
+    rc_rot, rc_t = ref.create_solver_camera_transform(0, 0, 0, 0, 0, 0.0)
+    h = TAG_SIZE / 2
+    corners = np.array([[0.0, -h, -h], [0.0, h, -h], [0.0, h, h], [0.0, -h, h]])
+    isometries, rays = [], []
+    for _ in range(n_tags):
+        pos = np.array([rng.uniform(1.5, 4.0), rng.uniform(-1.0, 1.0),
+                        rng.uniform(0.3, 1.5)])
+        tilt = sst.Rotation.from_euler(
+            "zyx", rng.uniform(-0.3, 0.3, size=3)).as_matrix()
+        rot = tilt @ sst.Rotation.from_euler("z", np.pi).as_matrix()
+        isometries.append((rot, pos))
+        for c in corners:
+            pc = rc_rot @ (rot @ c + pos) + rc_t
+            rays.append(pc / pc[2])
+    return isometries, np.array(rays), (rc_rot, rc_t)
+
+
+def oracle_inputs(isometries, rays, rc, gyro, dtype, dev, slots: int = 8):
+    """The oracle's scene as ``FrameSolver`` inputs: a layout of its tags
+    (ids 0..n-1), one frame of ``slots`` detections whose corners are the
+    rays' (x, y) and a unit pinhole without distortion, whose undistortion
+    returns them exactly. Returns (solver, dets, cam, rc_rot, rc_t, gyro)."""
+    import torch
+
+    from chalkydri_tpu_torch.detector.pipeline import Detections
+    from chalkydri_tpu_torch.geometry.field_layout import FieldLayout
+    from chalkydri_tpu_torch.pipeline import FrameSolver
+
+    n = len(isometries)
+    layout = FieldLayout(
+        torch.from_numpy(np.stack([r for r, _ in isometries])),
+        torch.from_numpy(np.stack([t for _, t in isometries])),
+        torch.ones(n, dtype=torch.bool), (0.0, 0.0)).to(dev)
+    solver = FrameSolver(layout, dtype=dtype)
+    ids = torch.full((1, slots), -1, dtype=torch.int32)
+    ids[0, :n] = torch.arange(n, dtype=torch.int32)
+    corners = torch.zeros(1, slots, 4, 2, dtype=torch.float64)
+    corners[0, :n] = torch.from_numpy(rays[:, :2]).reshape(n, 4, 2)
+    dets = Detections(ids, corners.to(dtype),
+                      torch.full((1, slots), 50.0, dtype=dtype),
+                      torch.zeros(1, slots, dtype=torch.int32), ids >= 0,
+                      torch.zeros(1, dtype=torch.int32))
+    dets = type(dets)(*(x.to(dev) for x in dets))
+    cam = torch.tensor([[1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]],
+                       dtype=dtype, device=dev)
+    rcr, rct = (torch.from_numpy(a)[None].to(dev, dtype) for a in rc)
+    return (solver, dets, cam, rcr, rct,
+            torch.tensor([gyro], dtype=dtype, device=dev))
+
+
+def reference_module():
+    """tests/reference_impl/ref_sqpnp.py (numpy), loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "ref_sqpnp", os.path.join(ROOT, "tests", "reference_impl",
+                                  "ref_sqpnp.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def eager_of(step):
+    """The eager module of a captured step (the step itself on the CPU)."""
+    return getattr(step, "module", step)
+
+
+def solve_phase(dev, card) -> dict:
+    """The solve kernel (``ops/solve.py``, ``csrc/solve.cu``) against its
+    plain twin on the card: float32 on the benchmark configurations'
+    rendered drives and edge cases at the cells' shape [2, 16], bit for
+    bit; on the f64 oracle's scenes and the planar mirror's orderings
+    (B = 1) within stated gaps; the double instance against the oracle at
+    its 1e-9 gates; and its time beside its bound and the plain chain's
+    at [2, 16]. Returns the kernel report's numbers."""
+    import torch
+
+    from benchmark.scene import camera_entries, make_scene
+    from chalkydri_tpu_torch.geometry.field_layout import load_field_layout
+    from chalkydri_tpu_torch.ops import solve as sv
+    from chalkydri_tpu_torch.pipeline import (
+        build_rig_from_config,
+        make_vision_pipeline,
+    )
+    from chalkydri_tpu_torch.solver import robot_pose as rp
+    from chalkydri_tpu_torch.tools.scenes import (
+        FIELD_JSON,
+        MOUNT,
+        SCENES,
+        TAGS,
+        projected_detections,
+        render_scene,
+    )
+
+    t_phase = time.perf_counter()
+    traffic = json.load(open(os.path.join(ROOT, "benchmark", "traffic",
+                                          "live.json")))
+    drives = SolveGaps(exact=True)
+    timing = None
+    for name in SOLVE_CONFIGS:
+        cfg = json.load(open(os.path.join(ROOT, "benchmark", "configs",
+                                          f"{name}.json")))
+        field = os.path.join(ROOT, cfg["field"])
+        layout = load_field_layout(field, dtype=torch.float32, device=dev)
+        params, rc = build_rig_from_config(camera_entries(cfg), layout,
+                                           device=dev)
+        pipe = eager_of(make_vision_pipeline(
+            layout, params, rc, device=dev,
+            detector_kwargs={"quad_decimate": int(cfg["quad_decimate"])}))
+        args = (pipe.camera_params, pipe.rc_rot, pipe.rc_t)
+        for seed in SOLVE_SEEDS:
+            scene = make_scene(cfg, traffic, field, seed)
+            gyro = torch.full((len(scene.frames),), scene.heading,
+                              dtype=torch.float32, device=dev)
+            for k in range(len(scene.poses)):
+                frames = torch.from_numpy(np.stack(
+                    [f[k] for f in scene.frames])).to(dev)
+                with torch.no_grad():
+                    dets = pipe.detector(frames)
+                drives.add(f"{name} seed {seed} pose {k}",
+                           *solve_both(pipe.solver, dets, *args, gyro))
+                if timing is None:
+                    timing = (pipe.solver, dets, args, gyro)
+    print(f"solve kernel vs plain twin, float32 FrameSolver on the "
+          f"benchmark drives ({', '.join(SOLVE_CONFIGS)}; seeds "
+          f"{list(SOLVE_SEEDS)}; [2, 16]): {drives.line()}", flush=True)
+    drives.check("solve drives")
+
+    # the oracle's scenes through FrameSolver with a unit pinhole: double
+    # against numpy, float32 against the twin
+    ref = reference_module()
+    oracle32 = SolveGaps(exact=False)
+    worst = [0.0, 0.0, 0.0]
+    for n_tags, seeds in ORACLE_SEEDS:
+        for seed in seeds:
+            rng = np.random.default_rng(seed)
+            isometries, rays, rc = oracle_scene(rng, n_tags)
+            gyro = rng.uniform(-np.pi, np.pi)
+            ref_rot, ref_pos, ref_std = ref.RefSqPnP().solve_robot_pose(
+                isometries, rays, rc, gyro, rp.SIGN_FLIP_CONST)
+            s64, *in64 = oracle_inputs(isometries, rays, rc, gyro,
+                                       torch.float64, dev)
+            with torch.no_grad():
+                out, _ = s64(*in64)
+            if not bool(out.valid[0]):
+                raise AssertionError(f"oracle seed {seed}: no valid pose")
+            gaps = (np.abs(out.position[0].cpu().numpy() - ref_pos).max(),
+                    np.abs(out.rotation[0].cpu().numpy() - ref_rot).max(),
+                    (np.abs(out.std_devs[0].cpu().numpy() - ref_std)
+                     / np.abs(ref_std)).max())
+            worst = [max(w, float(g)) for w, g in zip(worst, gaps)]
+            s32, *in32 = oracle_inputs(isometries, rays, rc, gyro,
+                                       torch.float32, dev)
+            oracle32.add(f"oracle {n_tags} tags seed {seed}",
+                         *solve_both(s32, *in32), anchor=out)
+    if max(worst) > ORACLE_TOL:
+        raise AssertionError(f"solve double vs the f64 oracle: {worst} over "
+                             f"{ORACLE_TOL}")
+    print(f"solve kernel, double, vs tests/reference_impl/ref_sqpnp.py on "
+          f"the 16 seeds of test_matches_numpy_reference (FrameSolver, unit "
+          f"pinhole): position {worst[0]:.3e} m, rotation {worst[1]:.3e}, "
+          f"std-devs {worst[2]:.3e} relative (gates {ORACLE_TOL}); float32 "
+          f"vs the plain twin there ([1, 8]): {oracle32.line()}", flush=True)
+    oracle32.check("solve oracle float32")
+
+    # edge cases, float32, through FrameSolver at [2, 16]: projected
+    # detections of the bench lens (tags 28-31 from the gates' robot pose)
+    calib = SCENES["bench"][0]
+    layout = load_field_layout(FIELD_JSON, dtype=torch.float32, device=dev)
+    cams = [{"calib": json.dumps({"OpenCVModel5": calib}),
+             "robot_to_cam": json.dumps(MOUNT)}] * 2
+    params, rc = build_rig_from_config(cams, layout, device=dev)
+    pipe = eager_of(make_vision_pipeline(layout, params, rc, device=dev))
+    robot = (13.0, 4.0215, 0.0)
+    full = [TAGS * 4, TAGS[::-1] * 4]
+    cases = {
+        "no tags": [(), ()],
+        "one tag": [TAGS[:1], TAGS[2:3]],
+        "every slot full": full,
+        "an unknown id": [TAGS[:2] + (50,) + TAGS[2:], (1000,) + TAGS],
+        "non-finite corners": [TAGS, TAGS],
+        "an undistortion that fails": [TAGS, TAGS],
+        "the gates' tags": [TAGS, TAGS[::-1]],
+    }
+    edge = SolveGaps(exact=True)
+    for label, slots in cases.items():
+        dets = projected_detections(layout, rc, robot, calib, slots)
+        cam = pipe.camera_params
+        if label == "every slot full":  # each repeat moved by under a pixel
+            jitter = torch.arange(16, dtype=torch.float32)[None, :, None, None]
+            dets = dets._replace(corners=dets.corners + 0.05 * (jitter % 4))
+        if label == "non-finite corners":
+            corners = dets.corners.clone()
+            corners[0, 1, 2, 0] = float("nan")
+            corners[1, 3, 0, 1] = float("inf")
+            dets = dets._replace(corners=corners)
+        if label == "an undistortion that fails":
+            corners = dets.corners.clone()
+            corners[:, 0, 1] = torch.tensor([1279.0, 799.0])
+            dets = dets._replace(corners=corners)
+            cam = cam.clone()
+            cam[:, 4:] = torch.tensor([-0.5, 0.0, 0.001, 0.001, 0.0])
+        dets = type(dets)(*(x.to(dev) for x in dets))
+        gyro = torch.zeros(2, device=dev)
+        got, n_got, want, n_want = solve_both(pipe.solver, dets, cam,
+                                              pipe.rc_rot, pipe.rc_t, gyro)
+        edge.add(f"solve edge case {label}", got, n_got, want, n_want)
+        if label == "an undistortion that fails" and n_got.tolist() != [3, 3]:
+            raise AssertionError(f"{label}: tag counts {n_got.tolist()}")
+        if label == "no tags" and (got.valid.any() or n_got.any()):
+            raise AssertionError(f"{label}: valid {got.valid.tolist()}")
+        if label == "an unknown id" and n_got.tolist() != [4, 4]:
+            raise AssertionError(f"{label}: tag counts {n_got.tolist()}")
+    print(f"solve edge cases vs the plain twin at [2, 16] "
+          f"({', '.join(cases)}): {edge.line()}", flush=True)
+    edge.check("solve edge cases")
+
+    # the planar mirror: a fronto-parallel wall, its detections' slots in 6
+    # orders (tests/test_torch_gates.py's case), one frame through
+    # FrameSolver
+    lay_cpu = load_field_layout(FIELD_JSON, dtype=torch.float32)
+    _, bench_rc = build_rig_from_config(cams[:1], lay_cpu, device="cpu")
+    frame = render_scene(lay_cpu, bench_rc, *robot, calib)
+    with torch.no_grad():
+        det_out = pipe.detector(torch.from_numpy(frame)[None].to(dev))
+    mirror = SolveGaps(exact=False)
+    rng = np.random.default_rng(3)
+    t_slots = det_out.ids.shape[1]
+    for trial in range(6):
+        perm = torch.from_numpy(rng.permutation(t_slots)).to(dev)
+        dets = det_out._replace(**{k: getattr(det_out, k)[:, perm] for k in (
+            "ids", "corners", "decision_margins", "hammings", "valid")})
+        *pair, ref64 = solve_both(
+            pipe.solver, dets, pipe.camera_params[:1], pipe.rc_rot[:1],
+            pipe.rc_t[:1], torch.zeros(1, device=dev), anchor=True)
+        mirror.add(f"planar mirror ordering {trial}", *pair, anchor=ref64)
+        got = pair[0]
+        pos = got.position[0].tolist()
+        if (not bool(got.valid[0]) or math.hypot(pos[0] - robot[0],
+                                                 pos[1] - robot[1]) >= 0.02
+                or abs(pos[2]) >= 0.05):
+            raise AssertionError(f"planar mirror ordering {trial}: {pos}")
+    print(f"solve planar mirror, 6 orderings of one frame's slots ([1, "
+          f"{t_slots}], each within 0.02 m of the truth) vs the plain twin: "
+          f"{mirror.line()}", flush=True)
+    mirror.check("solve planar mirror")
+
+    solver, dets, args, gyro = timing
+    with torch.no_grad():
+        ms = statistics.median(cuda_times_ms(lambda: solver(dets, *args, gyro)))
+        plain_ms = statistics.median(cuda_times_ms(
+            lambda: solver.forward_plain(dets, *args, gyro)))
+        device_ms, launches = graph_device_ms(
+            lambda: solver(dets, *args, gyro), sv.solve_frames)
+    print(f"solve solve_frames {tuple(dets.ids.shape)}: kernel {ms:.4f} ms "
+          f"(device {device_ms:.4f} ms a call by events over a graph of 20 "
+          f"calls; {launches:g} launches a call counted by the wrapper), "
+          f"plain {plain_ms:.4f} ms; bit-identical on "
+          f"{drives.same + edge.same} of {drives.frames + edge.frames} "
+          f"frames at this shape [{card}]", flush=True)
+    bytes_moved, ops = solve_work(*dets.ids.shape)
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    print(f"solve solve_frames [2, 16]: bound {bound_ms * 1e3:.4f} us by "
+          f"{bound_by} ({ops} operations, {bytes_moved} bytes): the kernel "
+          f"is the chain of dependent steps; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    err = max(g.abs_err for g in (drives, oracle32, edge, mirror))
+    return {"ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+            "counted_launches_per_call": launches, "bytes": bytes_moved,
+            "ops": ops, "max_abs_err": err}
+
+
+def graph_device_ms(fn, wrapper, calls: int = 20) -> tuple[float, int]:
+    """(device ms a call of ``fn``, launches a call): ``calls`` calls
+    captured into one CUDA graph and its replays timed by CUDA events, so
+    no host launch cost is counted; the launches are the wrapper's count
+    of the capture (the profiler's window lost launches of this short
+    kernel)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = wrapper.launches
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    launches = (wrapper.launches - before) / calls
+    ms = statistics.median(cuda_times_ms(graph.replay)) / calls
+    return ms, launches
+
+
+def solve_work(b: int, t: int, max_iter: int = 15,
+               undistort_iters: int = 20) -> tuple[int, int]:
+    """(bytes, operations) of the solve for [b, t]: the detections,
+    camera parameters, the layout rows the ids pick and the outputs once;
+    the arithmetic of each phase of csrc/solve.cu, counted from its code
+    (adds, multiplies, divisions, roots, compares alike)."""
+    from chalkydri_tpu_torch.ops.solve import N_CAND
+
+    n, c = 4 * t, N_CAND
+    bytes_moved = b * (t * (4 + 32 + 1 + 4 + 48) + 9 * 4 + 48 + 4
+                       + 36 + 12 + 12 + 1 + 4)
+    per_frame = (n * (undistort_iters * 88 + 25)  # undistortion
+                 + n * 71  # world points, projectors, p_i p_j
+                 + 117 * n * 2  # Q_tt, Q_rt, Q_rr
+                 + 27 * 6 + 81 * 7 + 9 * (18 + 162 * 2)  # omega, inverse
+                 + 4 * (45 * 18 + 5 * (4 * 35 + 27)) + 70 * 18  # subspace
+                 + 25 * (20 + 3 * 25 * 10) + 36 * 10  # Jacobi, basis
+                 + c * (400 + max_iter * 3000 + 180 + n * 7 + 100))
+    return bytes_moved, b * per_frame
 
 
 def require_equal(label: str, names, got, want) -> None:
@@ -838,8 +1316,15 @@ def check_path(label, outs, true_x, true_y) -> float:
                                  out.pose_y - true_y).max()) for out in outs)
 
 
-def compare_outputs(label, ref, other) -> None:
-    """Integer outputs equal, floats within the CPU parity tolerances."""
+def compare_outputs(label, ref, other, exact_pose: bool = False) -> None:
+    """Integer outputs equal, floats within the CPU parity tolerances, and
+    the std-devs' distrust (the dtype's max) alike; with ``exact_pose``
+    the solve's outputs (pose, yaw, std-devs) bit for bit. Without it the
+    std-devs are not compared by value: in float32 they scale with the
+    square root of the fit's energy, a sum that cancels to a residual
+    below its rounding at these scenes (the planar mirror's float32
+    std-devs lie 91 % from the float64 chain's), so another slot order or
+    corners a few ulps off move them by tens of percent."""
     import torch
 
     for name in ("ids", "hammings", "valid", "dropped_points"):
@@ -860,6 +1345,13 @@ def compare_outputs(label, ref, other) -> None:
     for name, a, b, tol in checks:
         if float((a - b).abs().max()) > tol:
             raise AssertionError(f"{label}: {name} differs")
+    if not torch.equal(ref.std_devs.abs() > 1e30, other.std_devs.abs() > 1e30):
+        raise AssertionError(f"{label}: std-devs distrust differs")
+    if exact_pose:
+        for name in ("pose_x", "pose_y", "pose_yaw", "std_devs"):
+            if not torch.equal(_bits(getattr(ref, name)),
+                               _bits(getattr(other, name))):
+                raise AssertionError(f"{label}: {name} not bit-identical")
     m_a = ref.detections.decision_margins[valid]
     m_b = other.detections.decision_margins[valid]
     if not ((m_a - m_b).abs() <= 1e-3 * m_b.abs().clamp(min=1.0)).all():
@@ -1003,7 +1495,9 @@ def drive_path(label, step, frames, true_xy_yaw, counters, expect, card,
 
     with plain_twins():
         plain_out = eager(frames, gyros[0])
-    compare_outputs(f"{label} vs plain twins", outs[0], plain_out)
+    # one card, the same detections: the solve kernel is the twin's bits
+    compare_outputs(f"{label} vs plain twins", outs[0], plain_out,
+                    exact_pose=against is None)
     if against is not None:
         ref, got, how = against(frames, gyros[0]), outs[0], "slot for slot"
         if ties_may_reorder:
@@ -1376,7 +1870,7 @@ def app_phase(dev, card, counters) -> None:
             launches = {name: fn.launches for name, fn in counters.items()}
             packets = [decode_measurement(d) for d in recv_all(rio)]
             expect = {"threshold_ccl_extract": APP_ITERS,
-                      "segment_stats": APP_ITERS}
+                      "segment_stats": APP_ITERS, "solve_frames": APP_ITERS}
             if launches != {k: expect.get(k, 0) for k in launches}:
                 raise AssertionError(f"{label}: kernel launches {launches} "
                                      f"for {APP_ITERS} dispatched steps")
@@ -1410,8 +1904,8 @@ def app_phase(dev, card, counters) -> None:
             lat = sorted(p[2] for p in packets[sum(in_flight):] if p[4])
             spans = SPANS.summary()
             print(f"{label}: {APP_ITERS} iterations, {APP_ITERS / wall:.2f} "
-                  f"iterations/s, launches {launches} (one B1, one B2 a "
-                  f"step); {len(packets)} packets: "
+                  f"iterations/s, launches {launches} (one B1, one B2 and "
+                  f"one solve a step); {len(packets)} packets: "
                   f"{sum(1 for p in packets if p[4])} poses, all 4 tags, "
                   f"max position error {err:.5f} m, "
                   f"{sum(1 for p in packets if not p[4])} heartbeats for "
@@ -1553,7 +2047,8 @@ def bench_phase(dev, card, counters) -> None:
     # round, the replayed rounds
     replays = 1 + BENCH_ITERS * BENCH_REPS
     steps = WARMUP_STEPS + BENCH_ITERS + replays
-    want = {name: steps if name in ("threshold_ccl_extract", "segment_stats")
+    want = {name: steps if name in ("threshold_ccl_extract", "segment_stats",
+                                    "solve_frames")
             else 0 for name in counters}
     if launches != want or counters["threshold_ccl_extract"].chain_launches:
         raise AssertionError(f"bench path: kernel launches {launches} over "
@@ -1857,6 +2352,7 @@ def main() -> None:
         segment_stats,
         segment_stats_plain,
     )
+    from chalkydri_tpu_torch.ops.solve import solve_frames
     from chalkydri_tpu_torch.ops.threshold_ccl import (
         label_components_ccl,
         threshold_ccl,
@@ -1974,9 +2470,13 @@ def main() -> None:
     band = band_phases(dev, card, sp_frames)
     band_edge_cases(dev)
 
+    # The solve stage's kernel against the plain chain.
+    solve = solve_phase(dev, card)
+
     # -- the paths through the entry points, kernels counted --------------
     counters = {"threshold_ccl_extract": threshold_ccl_extract,
                 "segment_stats": segment_stats,
+                "solve_frames": solve_frames,
                 "threshold_ccl": threshold_ccl,
                 "label_components_ccl": label_components_ccl,
                 "threshold_ccl_exact": threshold_ccl_exact,
@@ -1986,7 +2486,8 @@ def main() -> None:
     step = make_vision_pipeline(layout, params, rc, device=dev)
     threshold_ccl_extract.chain_launches = 0
     qd2 = drive_path("qd2 main path", step, frames, poses, counters,
-                     ("threshold_ccl_extract", "segment_stats"), card,
+                     ("threshold_ccl_extract", "segment_stats",
+                      "solve_frames"), card,
                      TIMED_STEPS["qd2"])
     if threshold_ccl_extract.chain_launches:
         raise AssertionError("qd2 main path: B1 took the chain route")
@@ -1994,12 +2495,13 @@ def main() -> None:
                                     detector_kwargs={"quad_decimate": 1})
     qd1 = drive_path("qd1 bench path", step_qd1, frames, poses, counters,
                      ("threshold_ccl", "label_components_ccl",
-                      "segment_stats"), card, TIMED_STEPS["qd1"])
+                      "segment_stats", "solve_frames"), card,
+                     TIMED_STEPS["qd1"])
     step_dep = make_vision_pipeline(layout, dep_params, dep_rc, device=dev,
                                     detector_kwargs={"quad_decimate": 1})
     dep = drive_path("qd1 deployed path", step_dep, dep_frames, dep_poses,
-                     counters, ("threshold_ccl_exact", "segment_stats"), card,
-                     TIMED_STEPS["qd1"])
+                     counters, ("threshold_ccl_exact", "segment_stats",
+                                "solve_frames"), card, TIMED_STEPS["qd1"])
 
     # The row-banded step: four bands of the one card, kernel CCL, one
     # CUDA graph replay a step.
@@ -2008,7 +2510,8 @@ def main() -> None:
     seam_rounds = 2 * BANDS + 2  # the band CCL's default outer_rounds
     per_replay = {"label_components_blocked": BANDS,
                   "propagate_components_blocked": seam_rounds * BANDS,
-                  "extract_candidates_band": BANDS, "segment_stats": 1}
+                  "extract_candidates_band": BANDS, "segment_stats": 1,
+                  "solve_frames": 1}
     sp_gyro = torch.tensor([p[2] for p in sp_poses], dtype=torch.float32,
                            device=dev)
     probe = torch.ones(1, device=dev)
@@ -2031,7 +2534,8 @@ def main() -> None:
             label, banded, sp_frames, sp_poses,
             counters, ("label_components_blocked",
                        "propagate_components_blocked",
-                       "extract_candidates_band", "segment_stats"), card,
+                       "extract_candidates_band", "segment_stats",
+                       "solve_frames"), card,
             TIMED_STEPS["spatial"], against=single,
             ties_may_reorder=(qd == 2))
         if spatial[qd] != {k: STEPS * per_replay.get(k, 0) for k in counters}:
@@ -2188,6 +2692,12 @@ def main() -> None:
                "ccl_kernel.py:1244"),
               ("extract_candidates_band", "extract_blocked.cu",
                "ccl_kernel.py:698"))),
+        dict(kernel_entry("solve_frames", "solve.cu", None,
+                          qd2["solve_frames"], solve["max_abs_err"],
+                          solve["ms"], solve["plain_ms"], solve["bytes"],
+                          solve["ops"]),
+             replaces=None, device_ms=solve["device_ms"],
+             counted_launches_per_call=solve["counted_launches_per_call"]),
     ]
     print(json.dumps({"kernels": report}))
     print(card_line())

@@ -116,7 +116,7 @@ def test_packets_equal_jax(pose, std, ts, cam, n):
 def test_comm_sends_the_packet_bytes_and_reads_the_gyro(use_native):
     """Both Comm paths: the datagram is encode_measurement's bytes, and a
     little-endian float64 on the gyro port reads back."""
-    from chalkydri_tpu_torch.native import BUILD_DIR, load_native
+    from chalkydri_tpu_torch.native import BUILD_DIR, library_path, load_native
 
     if use_native and load_native() is None:
         pytest.skip("no C++ toolchain: the native path cannot build")
@@ -134,8 +134,8 @@ def test_comm_sends_the_packet_bytes_and_reads_the_gyro(use_native):
     try:
         assert (comm._native is not None) == use_native
         if use_native:  # built outside the source tree
-            assert os.path.exists(os.path.join(BUILD_DIR,
-                                               "libchalkydri_native.so"))
+            assert os.path.exists(library_path())
+            assert os.path.dirname(library_path()) == BUILD_DIR
             assert not any(f.endswith(".so") for f in os.listdir(
                 os.path.dirname(whacknet.__file__).replace("io", "native")))
         pose, std = whacknet.RobotPose(1.0, 2.0, 0.5), whacknet.VisionUncertainty(
@@ -154,6 +154,122 @@ def test_comm_sends_the_packet_bytes_and_reads_the_gyro(use_native):
         rio.close()
         robot.close()
 
+
+@pytest.mark.parametrize("use_native", [False, True])
+def test_comm_keeps_the_order_of_a_burst(use_native):
+    """Both Comm paths: a burst of packets (sent at once from the
+    publishing thread while nothing waits before them, else queued)
+    arrives whole and in the order published."""
+    from chalkydri_tpu_torch.native import load_native
+
+    if use_native and load_native() is None:
+        pytest.skip("no C++ toolchain: the native path cannot build")
+    rio = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rio.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 20)
+    rio.bind(("127.0.0.1", 0))
+    rio.settimeout(5.0)
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    gyro_port = probe.getsockname()[1]
+    probe.close()
+    comm = whacknet.Comm(remote_addr="127.0.0.1",
+                         remote_port=rio.getsockname()[1],
+                         gyro_port=gyro_port, use_native=use_native)
+    try:
+        n = 48  # under the native queue's bound of 64
+        for ts in range(n):
+            comm.publish(ts % 2, 1, ts, whacknet.RobotPose(float(ts), 0.0, 0.0),
+                         whacknet.VisionUncertainty())
+        got = [whacknet.decode_measurement(rio.recvfrom(64)[0])[2]
+               for _ in range(n)]
+        assert got == list(range(n))
+    finally:
+        comm.close()
+        rio.close()
+        for t in (getattr(comm, "_send_thread", None),
+                  getattr(comm, "_gyro_thread", None)):
+            if t is not None:  # the Python path's threads end within 0.2 s
+                t.join(timeout=5.0)
+                assert not t.is_alive()
+
+
+
+class _WouldBlock:
+    """A Comm's send socket whose non-blocking sends in ``blocked`` (by
+    the count of non-blocking tries) fail as a full buffer does; blocking
+    sends, the sender thread's, go through."""
+
+    def __init__(self, sock, blocked):
+        self._sock, self._blocked, self._tries = sock, blocked, 0
+
+    def sendto(self, data, *args):
+        if len(args) == 2:  # (flags, address): the publishing thread's try
+            self._tries += 1
+            if self._blocked(self._tries):
+                raise BlockingIOError(11, "Resource temporarily unavailable")
+        return self._sock.sendto(data, *args)
+
+    def close(self):
+        self._sock.close()
+
+
+@pytest.mark.parametrize("blocked", ["first", "every third", "all"])
+def test_comm_queues_a_send_that_would_block(blocked):
+    """The Python path under socket backpressure: a send that would block
+    goes to the queue, later packets queue behind it until the sender
+    thread has sent it, and all arrive, in the order published, from the
+    one source port."""
+    rule = {"first": lambda n: n == 1, "every third": lambda n: n % 3 == 0,
+            "all": lambda n: True}[blocked]
+    rio = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rio.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 20)
+    rio.bind(("127.0.0.1", 0))
+    rio.settimeout(5.0)
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    gyro_port = probe.getsockname()[1]
+    probe.close()
+    comm = whacknet.Comm(remote_addr="127.0.0.1",
+                         remote_port=rio.getsockname()[1],
+                         gyro_port=gyro_port, use_native=False)
+    sock = _WouldBlock(comm._send_sock, rule)
+    comm._send_sock = sock
+    try:
+        n = 48
+        for ts in range(n):
+            comm.publish(0, 1, ts, whacknet.RobotPose(float(ts), 0.0, 0.0),
+                         whacknet.VisionUncertainty())
+        got = [rio.recvfrom(64) for _ in range(n)]
+        assert [whacknet.decode_measurement(d)[2] for d, _ in got] == list(
+            range(n))
+        assert len({addr for _, addr in got}) == 1
+        assert sock._tries >= 1
+    finally:
+        comm.close()
+        comm._send_thread.join(timeout=5.0)
+        comm._gyro_thread.join(timeout=5.0)
+        rio.close()
+        assert not comm._send_thread.is_alive()
+
+
+def test_native_library_is_named_by_its_sources(tmp_path, monkeypatch):
+    """The native library's path changes with any byte of ``native/src``
+    (so a tree built before a change builds anew), and with nothing
+    else."""
+    import shutil
+
+    import chalkydri_tpu_torch.native as native
+
+    src = tmp_path / "native" / "src"
+    shutil.copytree(native._SRC_DIR, src)
+    shutil.copy(os.path.join(native._DIR, "Makefile"), tmp_path / "native")
+    monkeypatch.setattr(native, "_SRC_DIR", str(src))
+    first = native.library_path()
+    assert first == native.library_path()
+    assert os.path.dirname(first) == native.BUILD_DIR
+    with open(src / "whacknet.cpp", "a") as f:
+        f.write("// changed\n")
+    assert native.library_path() != first
 
 def _write_log(mod, path, frame):
     log = mod.UnifiedLogger(path, meta={"graph": "g.ron"})
