@@ -848,9 +848,16 @@ class App:
             dispatched: list = []
             with span("app.dispatch"):
                 for g in self.groups:
-                    if not any(ch.fresh for ch in g.chains):
+                    fresh = sum(ch.fresh for ch in g.chains)
+                    if not fresh:
                         dispatched.append(None)
                         continue
+                    # The step's slots and those of them with a fresh frame:
+                    # the step runs every slot whatever the count.
+                    t_ns = time.monotonic_ns()
+                    tracing.SPANS.count("app.slots_fresh", fresh, t_ns)
+                    tracing.SPANS.count("app.slots", g.frames_host.shape[0],
+                                        t_ns)
                     # Batch dim may exceed len(chains) (grid padding).
                     frames_dev = self._upload(g)
                     gyro_dev = torch.full(

@@ -55,7 +55,9 @@ def init_tracing(default_level: str = "INFO") -> logging.Logger:
 class SpanStats:
     """Rolling per-span wall-time stats (count / total / max, and the
     newest ``SAMPLES_KEPT`` durations for p50 / p90, with their starts in
-    ``starts``: host ``monotonic_ns``, None where unknown)."""
+    ``starts``: host ``monotonic_ns``, None where unknown), and counters
+    beside them: the newest ``SAMPLES_KEPT`` values of each, with the host
+    ``monotonic_ns`` of each record, in ``counts``."""
 
     def __init__(self):
         self.stats = defaultdict(lambda: [0, 0.0, 0.0])  # n, total_s, max_s
@@ -63,6 +65,8 @@ class SpanStats:
             lambda: collections.deque(maxlen=SAMPLES_KEPT))
         self.starts = defaultdict(
             lambda: collections.deque(maxlen=SAMPLES_KEPT))
+        self.counts = defaultdict(
+            lambda: collections.deque(maxlen=SAMPLES_KEPT))  # (value, ns)
         self._lock = threading.Lock()  # keeps samples and starts in step
 
     def record(self, name: str, dt: float,
@@ -84,6 +88,18 @@ class SpanStats:
         self.samples[name].append(dt)
         self.starts[name].append(start_ns)
 
+    def count(self, name: str, value, t_ns: int) -> None:
+        """Record ``value`` of counter ``name`` at host ``t_ns``."""
+        with self._lock:
+            self.counts[name].append((value, t_ns))
+
+    def counted_between(self, name: str, t0_ns: int, t1_ns: int) -> list:
+        """The kept values of counter ``name`` recorded in [t0_ns, t1_ns],
+        oldest first."""
+        with self._lock:
+            return [v for v, t in self.counts.get(name, ())
+                    if t0_ns <= t <= t1_ns]
+
     def between(self, name: str, t0_ns: int, t1_ns: int) -> list:
         """The kept durations (s) of ``name`` that started in [t0_ns,
         t1_ns], oldest first."""
@@ -97,6 +113,7 @@ class SpanStats:
             self.stats.clear()
             self.samples.clear()
             self.starts.clear()
+            self.counts.clear()
 
     def summary(self) -> dict:
         out = {}

@@ -48,15 +48,17 @@
    which takes B6's global-memory route; B7 with halos of 0-2 rows, an
    input off 16-byte alignment, ``y_offset`` at the 13-bit limit); the
    solve kernel (``ops/solve.py``: ``FrameSolver`` in one launch) against
-   the plain chain, float32, bit for bit at the cells' shape [2, 16] (the
-   benchmark configurations' drives, ``benchmark/scene.py``, both
-   cameras, 5 seeds of each; edge cases: no tags, one tag, every slot
-   full, unknown ids, non-finite corners, a failed undistortion), and at
-   B = 1 (the oracle's 16 seeds, the planar mirror's 6 orderings) within
-   POSE_TOL m and ROT_TOL, its std-devs no further from the float64 plain
-   chain than twice the float32 twin's; its double instance against
-   ``tests/reference_impl/ref_sqpnp.py`` at the 1e-9 gates (a unit
-   pinhole); and its time beside its bound and the plain chain's;
+   the plain chain, float32, bit for bit at each of the cells' shapes,
+   [2, 16] and [4, 16] (the drives of every configuration in
+   ``BENCHMARK.json``, ``benchmark/scene.py``, every camera, 5 seeds of
+   each; edge cases at two and at four cameras: no tags, one tag, every
+   slot full, unknown ids, non-finite corners, a failed undistortion),
+   and at B = 1 (the oracle's 16 seeds, the planar mirror's 6
+   orderings) within POSE_TOL m and ROT_TOL, its std-devs no further
+   from the float64 plain chain than twice the float32 twin's; its
+   double instance against ``tests/reference_impl/ref_sqpnp.py`` at the
+   1e-9 gates (a unit pinhole); and its time beside its bound and the
+   plain chain's;
 5. drives four paths through the entry points (``build_rig_from_config``
    -> ``make_vision_pipeline`` / ``make_sharded_vision_pipeline``), each
    with the launch counts set to 0 just before it and read just after
@@ -302,9 +304,8 @@ class plain_twins:
         return False
 
 
-# The solve kernel's checks: the benchmark configurations' scenes at these
-# seeds, each drive of 14 poses seen by both cameras.
-SOLVE_CONFIGS = ("comp2-1600x1304-qd2", "comp2-1600x1304-qd1")
+# The solve kernel's checks: every benchmark configuration's scenes at
+# these seeds, each drive of 14 poses seen by all its cameras.
 SOLVE_SEEDS = (2147483711, 3000000019, 4052555153, 5000000111, 6442450967)
 # tests/test_solver.py::test_matches_numpy_reference's seeds by tag count
 ORACLE_SEEDS = ((2, (0, 1, 2, 3, 4, 7, 8, 9)), (3, (0, 1, 2, 3, 4, 5, 7, 8)))
@@ -516,17 +517,70 @@ def eager_of(step):
     return getattr(step, "module", step)
 
 
-def solve_phase(dev, card) -> dict:
-    """The solve kernel (``ops/solve.py``, ``csrc/solve.cu``) against its
-    plain twin on the card: float32 on the benchmark configurations'
-    rendered drives and edge cases at the cells' shape [2, 16], bit for
-    bit; on the f64 oracle's scenes and the planar mirror's orderings
-    (B = 1) within stated gaps; the double instance against the oracle at
-    its 1e-9 gates; and its time beside its bound and the plain chain's
-    at [2, 16]. Returns the kernel report's numbers."""
+def solve_drives(dev, seeds=SOLVE_SEEDS, names=None):
+    """The solve kernel against its plain twin, float32, on the rendered
+    drives of every benchmark configuration (or those in ``names``) at
+    ``seeds``, one batch of the rig's cameras a pose. Returns ({batch
+    shape: SolveGaps, exact}, {configuration: its shape}, (solver, dets,
+    args, gyro) of the first two-camera batch or None)."""
     import torch
 
     from benchmark.scene import camera_entries, make_scene
+    from chalkydri_tpu_torch.geometry.field_layout import load_field_layout
+    from chalkydri_tpu_torch.pipeline import (
+        build_rig_from_config,
+        make_vision_pipeline,
+    )
+
+    traffic = json.load(open(os.path.join(ROOT, "benchmark", "traffic",
+                                          "live.json")))
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        configs = json.load(f)["configs"]
+    drives, shape_of = {}, {}  # batch shape -> SolveGaps; config -> shape
+    timing = None
+    for entry in configs:
+        name = entry["name"]
+        if names is not None and name not in names:
+            continue
+        with open(os.path.join(ROOT, entry["file"])) as f:
+            cfg = json.load(f)
+        field = os.path.join(ROOT, cfg["field"])
+        layout = load_field_layout(field, dtype=torch.float32, device=dev)
+        params, rc = build_rig_from_config(camera_entries(cfg), layout,
+                                           device=dev)
+        pipe = eager_of(make_vision_pipeline(
+            layout, params, rc, device=dev,
+            detector_kwargs={"quad_decimate": int(cfg["quad_decimate"])}))
+        args = (pipe.camera_params, pipe.rc_rot, pipe.rc_t)
+        for seed in seeds:
+            scene = make_scene(cfg, traffic, field, seed)
+            gyro = torch.full((len(scene.frames),), scene.heading,
+                              dtype=torch.float32, device=dev)
+            for k in range(len(scene.poses)):
+                frames = torch.from_numpy(np.stack(
+                    [f[k] for f in scene.frames])).to(dev)
+                with torch.no_grad():
+                    dets = pipe.detector(frames)
+                shape = shape_of[name] = tuple(dets.ids.shape)
+                drives.setdefault(shape, SolveGaps(exact=True)).add(
+                    f"{name} seed {seed} pose {k}",
+                    *solve_both(pipe.solver, dets, *args, gyro))
+                if timing is None and shape[0] == 2:
+                    timing = (pipe.solver, dets, args, gyro)
+    return drives, shape_of, timing
+
+
+def solve_phase(dev, card) -> dict:
+    """The solve kernel (``ops/solve.py``, ``csrc/solve.cu``) against its
+    plain twin on the card: float32 on every benchmark configuration's
+    rendered drives and on edge cases at the cells' shapes ([2, 16] and
+    [4, 16]: two and four cameras), bit for bit; on the f64 oracle's
+    scenes and the planar mirror's orderings (B = 1) within stated gaps;
+    the double instance against the oracle at its 1e-9 gates; and its
+    time beside its bound and the plain chain's at [2, 16]. Returns the
+    kernel report's numbers."""
+    import torch
+
     from chalkydri_tpu_torch.geometry.field_layout import load_field_layout
     from chalkydri_tpu_torch.ops import solve as sv
     from chalkydri_tpu_torch.pipeline import (
@@ -544,38 +598,15 @@ def solve_phase(dev, card) -> dict:
     )
 
     t_phase = time.perf_counter()
-    traffic = json.load(open(os.path.join(ROOT, "benchmark", "traffic",
-                                          "live.json")))
-    drives = SolveGaps(exact=True)
-    timing = None
-    for name in SOLVE_CONFIGS:
-        cfg = json.load(open(os.path.join(ROOT, "benchmark", "configs",
-                                          f"{name}.json")))
-        field = os.path.join(ROOT, cfg["field"])
-        layout = load_field_layout(field, dtype=torch.float32, device=dev)
-        params, rc = build_rig_from_config(camera_entries(cfg), layout,
-                                           device=dev)
-        pipe = eager_of(make_vision_pipeline(
-            layout, params, rc, device=dev,
-            detector_kwargs={"quad_decimate": int(cfg["quad_decimate"])}))
-        args = (pipe.camera_params, pipe.rc_rot, pipe.rc_t)
-        for seed in SOLVE_SEEDS:
-            scene = make_scene(cfg, traffic, field, seed)
-            gyro = torch.full((len(scene.frames),), scene.heading,
-                              dtype=torch.float32, device=dev)
-            for k in range(len(scene.poses)):
-                frames = torch.from_numpy(np.stack(
-                    [f[k] for f in scene.frames])).to(dev)
-                with torch.no_grad():
-                    dets = pipe.detector(frames)
-                drives.add(f"{name} seed {seed} pose {k}",
-                           *solve_both(pipe.solver, dets, *args, gyro))
-                if timing is None:
-                    timing = (pipe.solver, dets, args, gyro)
-    print(f"solve kernel vs plain twin, float32 FrameSolver on the "
-          f"benchmark drives ({', '.join(SOLVE_CONFIGS)}; seeds "
-          f"{list(SOLVE_SEEDS)}; [2, 16]): {drives.line()}", flush=True)
-    drives.check("solve drives")
+    drives, shape_of, timing = solve_drives(dev)
+    for shape, gaps in sorted(drives.items()):
+        names = [n for n, s in shape_of.items() if s == shape]
+        print(f"solve kernel vs plain twin, float32 FrameSolver on the "
+              f"benchmark drives ({', '.join(names)}; seeds "
+              f"{list(SOLVE_SEEDS)}) at {list(shape)}: {gaps.line()}",
+              flush=True)
+    for shape, gaps in sorted(drives.items()):
+        gaps.check(f"solve drives at {list(shape)}")
 
     # the oracle's scenes through FrameSolver with a unit pinhole: double
     # against numpy, float32 against the twin
@@ -614,8 +645,9 @@ def solve_phase(dev, card) -> dict:
           f"vs the plain twin there ([1, 8]): {oracle32.line()}", flush=True)
     oracle32.check("solve oracle float32")
 
-    # edge cases, float32, through FrameSolver at [2, 16]: projected
-    # detections of the bench lens (tags 28-31 from the gates' robot pose)
+    # edge cases, float32, through FrameSolver at [2, 16] and [4, 16]:
+    # projected detections of the bench lens (tags 28-31 from the gates'
+    # robot pose); four cameras see what two see, twice over
     calib = SCENES["bench"][0]
     layout = load_field_layout(FIELD_JSON, dtype=torch.float32, device=dev)
     cams = [{"calib": json.dumps({"OpenCVModel5": calib}),
@@ -633,38 +665,52 @@ def solve_phase(dev, card) -> dict:
         "an undistortion that fails": [TAGS, TAGS],
         "the gates' tags": [TAGS, TAGS[::-1]],
     }
-    edge = SolveGaps(exact=True)
-    for label, slots in cases.items():
-        dets = projected_detections(layout, rc, robot, calib, slots)
-        cam = pipe.camera_params
-        if label == "every slot full":  # each repeat moved by under a pixel
-            jitter = torch.arange(16, dtype=torch.float32)[None, :, None, None]
-            dets = dets._replace(corners=dets.corners + 0.05 * (jitter % 4))
-        if label == "non-finite corners":
-            corners = dets.corners.clone()
-            corners[0, 1, 2, 0] = float("nan")
-            corners[1, 3, 0, 1] = float("inf")
-            dets = dets._replace(corners=corners)
-        if label == "an undistortion that fails":
-            corners = dets.corners.clone()
-            corners[:, 0, 1] = torch.tensor([1279.0, 799.0])
-            dets = dets._replace(corners=corners)
-            cam = cam.clone()
-            cam[:, 4:] = torch.tensor([-0.5, 0.0, 0.001, 0.001, 0.0])
-        dets = type(dets)(*(x.to(dev) for x in dets))
-        gyro = torch.zeros(2, device=dev)
-        got, n_got, want, n_want = solve_both(pipe.solver, dets, cam,
-                                              pipe.rc_rot, pipe.rc_t, gyro)
-        edge.add(f"solve edge case {label}", got, n_got, want, n_want)
-        if label == "an undistortion that fails" and n_got.tolist() != [3, 3]:
-            raise AssertionError(f"{label}: tag counts {n_got.tolist()}")
-        if label == "no tags" and (got.valid.any() or n_got.any()):
-            raise AssertionError(f"{label}: valid {got.valid.tolist()}")
-        if label == "an unknown id" and n_got.tolist() != [4, 4]:
-            raise AssertionError(f"{label}: tag counts {n_got.tolist()}")
-    print(f"solve edge cases vs the plain twin at [2, 16] "
-          f"({', '.join(cases)}): {edge.line()}", flush=True)
-    edge.check("solve edge cases")
+    edge = {}  # cameras -> SolveGaps
+    for n_cams in (2, 4):
+        rig, rig_rc = pipe, rc
+        if n_cams != 2:
+            params4, rig_rc = build_rig_from_config(cams * 2, layout,
+                                                    device=dev)
+            rig = eager_of(make_vision_pipeline(layout, params4, rig_rc,
+                                                device=dev))
+        gaps = edge[n_cams] = SolveGaps(exact=True)
+        for label, slots in cases.items():
+            dets = projected_detections(layout, rig_rc, robot, calib,
+                                        slots * (n_cams // 2))
+            cam = rig.camera_params
+            if label == "every slot full":  # each repeat moved under a pixel
+                jitter = torch.arange(16, dtype=torch.float32)[
+                    None, :, None, None]
+                dets = dets._replace(
+                    corners=dets.corners + 0.05 * (jitter % 4))
+            if label == "non-finite corners":
+                corners = dets.corners.clone()
+                corners[0, 1, 2, 0] = float("nan")
+                corners[1, 3, 0, 1] = float("inf")
+                dets = dets._replace(corners=corners)
+            if label == "an undistortion that fails":
+                corners = dets.corners.clone()
+                corners[:, 0, 1] = torch.tensor([1279.0, 799.0])
+                dets = dets._replace(corners=corners)
+                cam = cam.clone()
+                cam[:, 4:] = torch.tensor([-0.5, 0.0, 0.001, 0.001, 0.0])
+            dets = type(dets)(*(x.to(dev) for x in dets))
+            gyro = torch.zeros(n_cams, device=dev)
+            got, n_got, want, n_want = solve_both(rig.solver, dets, cam,
+                                                  rig.rc_rot, rig.rc_t, gyro)
+            gaps.add(f"solve edge case {label}, {n_cams} cameras", got, n_got,
+                     want, n_want)
+            counts = n_got.tolist()
+            if (label == "an undistortion that fails"
+                    and counts != [3] * n_cams):
+                raise AssertionError(f"{label}: tag counts {counts}")
+            if label == "no tags" and (got.valid.any() or n_got.any()):
+                raise AssertionError(f"{label}: valid {got.valid.tolist()}")
+            if label == "an unknown id" and counts != [4] * n_cams:
+                raise AssertionError(f"{label}: tag counts {counts}")
+        print(f"solve edge cases vs the plain twin at [{n_cams}, 16] "
+              f"({', '.join(cases)}): {gaps.line()}", flush=True)
+        gaps.check(f"solve edge cases at [{n_cams}, 16]")
 
     # the planar mirror: a fronto-parallel wall, its detections' slots in 6
     # orders (tests/test_torch_gates.py's case), one frame through
@@ -707,15 +753,17 @@ def solve_phase(dev, card) -> dict:
           f"(device {device_ms:.4f} ms a call by events over a graph of 20 "
           f"calls; {launches:g} launches a call counted by the wrapper), "
           f"plain {plain_ms:.4f} ms; bit-identical on "
-          f"{drives.same + edge.same} of {drives.frames + edge.frames} "
-          f"frames at this shape [{card}]", flush=True)
+          f"{drives[(2, 16)].same + edge[2].same} of "
+          f"{drives[(2, 16)].frames + edge[2].frames} frames at this shape "
+          f"[{card}]", flush=True)
     bytes_moved, ops = solve_work(*dets.ids.shape)
     bound_ms, bound_by = bound(bytes_moved, ops)
     print(f"solve solve_frames [2, 16]: bound {bound_ms * 1e3:.4f} us by "
           f"{bound_by} ({ops} operations, {bytes_moved} bytes): the kernel "
           f"is the chain of dependent steps; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    err = max(g.abs_err for g in (drives, oracle32, edge, mirror))
+    err = max(g.abs_err for g in (*drives.values(), oracle32,
+                                  *edge.values(), mirror))
     return {"ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
             "counted_launches_per_call": launches, "bytes": bytes_moved,
             "ops": ops, "max_abs_err": err}

@@ -34,6 +34,7 @@ from chalkydri_tpu_torch.main import main
 from chalkydri_tpu_torch.pipeline import VisionOutput, build_rig_from_config
 from chalkydri_tpu_torch.runtime import App, RobotClock, TaskGraph, read_log
 from chalkydri_tpu_torch.tools.scenes import render_scene
+from chalkydri_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -314,6 +315,36 @@ def test_two_geometry_groups(layout, frames):
     for p in valid:
         assert abs(p[4][0] - POSES["A"][0]) < 0.02
         assert abs(p[4][1] - POSES["A"][1]) < 0.02
+
+
+def test_app_counts_the_fresh_slots_of_each_dispatch(layout, frames,
+                                                     monkeypatch):
+    """Four cameras in one group: each iteration that dispatches records
+    ``app.slots`` (the batch's 4) and ``app.slots_fresh`` (its cameras
+    with a fresh frame) as host ints at the dispatch, read from no
+    tensor; an iteration with no fresh frame dispatches and records
+    nothing."""
+    spans = tracing.SpanStats()
+    monkeypatch.setattr(tracing, "SPANS", spans)
+    clock, rec = ManualClock(), Recorder()
+    app = _port_app(layout, clock, rec, graph=_graph(n_cams=4))
+    assert app.groups[0].frames_buf.shape == (4, 240, 320)
+    script = {0: ["A", None, None], 1: ["B", None, None],
+              2: ["A", "B", None], 3: ["B", None, None]}
+    t0 = time.monotonic_ns()
+    packets, outs = _drive(app, frames, clock, rec, script)
+    t1 = time.monotonic_ns()
+    assert spans.counted_between("app.slots_fresh", t0, t1) == [4, 1]
+    assert spans.counted_between("app.slots", t0, t1) == [4, 4]
+    for name in ("app.slots_fresh", "app.slots"):
+        assert all(type(v) is int and t0 <= t <= t1
+                   for v, t in spans.counts[name])
+    assert spans.counted_between("app.slots", t0, t0 - 1) == []
+    # camera 2 alone published the second step's pose
+    assert sorted(p[:3] for p in packets if p[2]) == [
+        (1, 0, 2), (1, 1, 2), (1, 2, 2), (1, 3, 2), (2, 2, 2)]
+    spans.reset()
+    assert spans.counted_between("app.slots", t0, t1) == []
 
 
 def test_live_update_camera(layout, frames):

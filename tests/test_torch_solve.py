@@ -4,8 +4,11 @@ The kernel itself runs only on a card (``chip_smoke.py`` holds it to the
 plain twin there, bit for bit). Here: the shape function that sizes its
 CTA and refuses too many tags, the C entries' arity against
 ``ops/build.py::_SIGNATURES``, the frame strides the wrapper passes for
-the detector's sliced outputs, and that CPU tensors take the plain twin,
-unchanged, and never the kernel's entry.
+the detector's sliced outputs, that CPU tensors take the plain twin,
+unchanged, and never the kernel's entry, and the plain twin at four
+cameras against the float64 oracle. On a card (marked ``cuda``, skipped
+without one): the kernel equals the plain chain bit for bit at [4, 16]
+on the four-camera benchmark rig's drive.
 """
 
 from __future__ import annotations
@@ -153,3 +156,101 @@ def test_kernel_entries_refuse_cpu_tensors(frame_inputs, entry):
                           rc_rot, rc_t, gyro, tag_size=0.1651,
                           sign_flip=600.0, decision_margin_min=0.0,
                           max_iter=15)
+
+
+# -- four cameras: the plain twin at B = 4, and the kernel on a card ---------
+
+
+ORACLE_FRAMES = ((2, 0), (3, 1), (2, 7), (3, 5))  # (tags, seed) a frame
+ORACLE_TOL = 1e-9  # tests/test_torch_gates.py's position, rotation, std
+
+
+def _oracle_batch():
+    """Four of the float64 oracle's scenes (``tests/test_solver.py``) as one
+    batch of ``FrameSolver`` inputs: a layout of every frame's tags (frame
+    ``f``'s tags take ids ``8 f``, ``8 f + 1``, ...), each frame's
+    detections the rays' (x, y) through a unit pinhole, which its
+    undistortion returns exactly. Returns (solver, inputs, oracle answers
+    [(rotation, position, std-devs)])."""
+    import numpy as np
+
+    from chalkydri_tpu_torch.detector.pipeline import Detections
+    from chalkydri_tpu_torch.geometry.field_layout import FieldLayout
+    from tests.reference_impl.ref_sqpnp import RefSqPnP
+    from tests.test_solver import SIGN_FLIP_CONST, make_scene
+
+    slots, b = 8, len(ORACLE_FRAMES)
+    rots = np.tile(np.eye(3), (slots * b, 1, 1))
+    ts = np.zeros((slots * b, 3))
+    present = np.zeros(slots * b, bool)
+    ids = torch.full((b, T), -1, dtype=torch.int32)
+    corners = torch.zeros(b, T, 4, 2, dtype=torch.float64)
+    rc_rot, rc_t, gyro, want = [], [], [], []
+    for f, (n_tags, seed) in enumerate(ORACLE_FRAMES):
+        rng = np.random.default_rng(seed)
+        isometries, rays, rc = make_scene(rng, n_tags=n_tags)
+        g = rng.uniform(-np.pi, np.pi)
+        want.append(RefSqPnP().solve_robot_pose(isometries, rays, rc, g,
+                                                SIGN_FLIP_CONST))
+        for k, (r, t) in enumerate(isometries):
+            rots[slots * f + k], ts[slots * f + k] = r, t
+            present[slots * f + k] = True
+            ids[f, k] = slots * f + k
+        corners[f, :n_tags] = torch.from_numpy(
+            np.asarray(rays)[:, :2]).reshape(n_tags, 4, 2)
+        rc_rot.append(rc[0])
+        rc_t.append(rc[1])
+        gyro.append(g)
+    layout = FieldLayout(torch.from_numpy(rots), torch.from_numpy(ts),
+                         torch.from_numpy(present), (0.0, 0.0))
+    dets = Detections(ids, corners, torch.full((b, T), 50.0,
+                                               dtype=torch.float64),
+                      torch.zeros(b, T, dtype=torch.int32), ids >= 0,
+                      torch.zeros(b, dtype=torch.int32))
+    cam = torch.tensor([[1.0, 1.0] + [0.0] * 7] * b, dtype=torch.float64)
+    inputs = (dets, cam, torch.from_numpy(np.stack(rc_rot)),
+              torch.from_numpy(np.stack(rc_t)),
+              torch.tensor(gyro, dtype=torch.float64))
+    return pipeline.FrameSolver(layout, dtype=torch.float64), inputs, want
+
+
+def test_plain_twin_at_four_cameras_matches_the_f64_oracle():
+    """``FrameSolver.forward_plain`` over a batch of four cameras, each
+    frame its own oracle scene, in float64: every frame within the
+    gates' 1e-9 of the numpy oracle, as at one camera."""
+    solver, inputs, want = _oracle_batch()
+    out, n_tags = solver.forward_plain(*inputs)
+    assert n_tags.tolist() == [n for n, _ in ORACLE_FRAMES]
+    assert out.valid.tolist() == [True] * len(ORACLE_FRAMES)
+    for f, (rot, pos, std) in enumerate(want):
+        torch.testing.assert_close(out.position[f], torch.from_numpy(pos),
+                                   atol=ORACLE_TOL, rtol=0)
+        torch.testing.assert_close(out.rotation[f], torch.from_numpy(rot),
+                                   atol=ORACLE_TOL, rtol=0)
+        torch.testing.assert_close(out.std_devs[f], torch.from_numpy(std),
+                                   rtol=ORACLE_TOL, atol=0)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernel_equals_the_plain_chain_at_four_cameras(card):
+    """On a card, the solve kernel is the plain chain bit for bit at
+    [4, 16], float32, on the four-camera benchmark rig's rendered drive
+    (``benchmark/configs/north-4x1280x800-qd2.json``), as at [2, 16]: the
+    benchmark's ``correct`` rests on it. The check is ``chip_smoke.py``'s,
+    which holds every configuration's drives at five seeds; here one."""
+    import chip_smoke
+
+    drives, shape_of, _ = chip_smoke.solve_drives(
+        card, seeds=chip_smoke.SOLVE_SEEDS[:1],
+        names=("north-4x1280x800-qd2",))
+    assert shape_of == {"north-4x1280x800-qd2": (4, T)}
+    gaps = drives[(4, T)]
+    gaps.check("solve drives at [4, 16]")
+    assert gaps.frames == 4 * 14 and gaps.same == gaps.frames
