@@ -58,117 +58,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ordered.cuh"
+
 namespace {
 
 constexpr int MAX_TAGS = 64;
 constexpr int BLOCK = 5;        // the subspace basis (smallest_eigvecs)
 constexpr int MAX_CAND = 2 * BLOCK;
 constexpr int SWEEPS = 5;       // _jacobi_eigh_small
-
-// ---- arithmetic, rounded as the plain chain's separate ops round ----
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float fmac(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fmac(double a, double b, double c) { return __fma_rn(a, b, c); }
-// IEEE division. A zero numerator over a finite nonzero divisor is the
-// signed zero a * b gives: the card's division takes a slow path of
-// several hundred cycles for it, and the eliminations and the
-// undistortion of an undistorted lens divide exact zeros at every step.
-__device__ __forceinline__ float dv(float a, float b) {
-  return (a == 0.0f && b != 0.0f && isfinite(b)) ? __fmul_rn(a, b) : __fdiv_rn(a, b);
-}
-__device__ __forceinline__ double dv(double a, double b) {
-  return (a == 0.0 && b != 0.0 && isfinite(b)) ? __dmul_rn(a, b) : __ddiv_rn(a, b);
-}
-__device__ __forceinline__ float sqr(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double sqr(double a) { return __dsqrt_rn(a); }
-__device__ __forceinline__ float at2(float y, float x) { return atan2f(y, x); }
-__device__ __forceinline__ double at2(double y, double x) { return atan2(y, x); }
-__device__ __forceinline__ float cosine(float a) { return cosf(a); }
-__device__ __forceinline__ double cosine(double a) { return cos(a); }
-__device__ __forceinline__ float sine(float a) { return sinf(a); }
-__device__ __forceinline__ double sine(double a) { return sin(a); }
-__device__ __forceinline__ float arccos(float a) { return acosf(a); }
-__device__ __forceinline__ double arccos(double a) { return acos(a); }
-__device__ __forceinline__ float fmodulo(float a, float b) { return fmodf(a, b); }
-__device__ __forceinline__ double fmodulo(double a, double b) { return fmod(a, b); }
-__device__ __forceinline__ float biggest(float) { return 3.402823466e+38f; }
-__device__ __forceinline__ double biggest(double) { return 1.7976931348623157e+308; }
-__device__ __forceinline__ float infinity(float) { return __int_as_float(0x7f800000); }
-__device__ __forceinline__ double infinity(double) { return __longlong_as_double(0x7ff0000000000000ll); }
-
-template <typename T> __device__ __forceinline__ bool finite(T a) {
-  return isfinite(a);
-}
-__device__ __forceinline__ float absval(float a) { return fabsf(a); }
-__device__ __forceinline__ double absval(double a) { return fabs(a); }
-// torch.clamp: NaN stays NaN.
-template <typename T> __device__ __forceinline__ T clamp_min(T a, T lo) {
-  return a < lo ? lo : a;
-}
-template <typename T> __device__ __forceinline__ T clamp_max(T a, T hi) {
-  return a > hi ? hi : a;
-}
-template <typename T> __device__ __forceinline__ T clamp(T a, T lo, T hi) {
-  return clamp_max(clamp_min(a, lo), hi);
-}
-// ATen's reduction starts each accumulator at +0: 0 + x (-0 becomes +0).
-template <typename T> __device__ __forceinline__ T z(T a) { return add(T(0), a); }
-
-// ---- PyTorch's orders at the step's shapes ----
-
-// cuBLAS gemm: sum_k a[k] b[k] as one fma chain from 0.
-template <typename T, typename A, typename B>
-__device__ __forceinline__ T chain(int k0, int k1, A a, B b) {
-  T acc = T(0);
-  for (int k = k0; k < k1; ++k) acc = fmac(a(k), b(k), acc);
-  return acc;
-}
-// cuBLAS gemv on a row-major matrix: the halves of k, then their sum.
-template <typename T, typename A, typename B>
-__device__ __forceinline__ T gemv_rows(int K, A a, B b) {
-  const int h = (K + 1) / 2;
-  return add(chain<T>(0, h, a, b), chain<T>(h, K, a, b));
-}
-// cuBLAS gemv on a transposed matrix: runs of 4 along k, added in order.
-template <typename T, typename A, typename B>
-__device__ __forceinline__ T gemv_cols(int K, A a, B b) {
-  T acc = chain<T>(0, K < 4 ? K : 4, a, b);
-  for (int s = 4; s < K; s += 4) acc = add(acc, chain<T>(s, s + 4 < K ? s + 4 : K, a, b));
-  return acc;
-}
-// ATen's sum over a contiguous last dim of R elements (one CTA row of
-// lanes: lane t takes t, t + width, ... into four accumulators).
-template <int R, typename T, typename X>
-__device__ __forceinline__ T sum_lanes(X x) {
-  constexpr int width = R >= 32 ? 32 : (R >= 16 ? 16 : (R >= 8 ? 8 : (R >= 4 ? 4 : (R >= 2 ? 2 : 1))));
-  T lane[width];
-  for (int t = 0; t < width; ++t) {
-    T vl[4] = {T(0), T(0), T(0), T(0)};
-    int i = 0;
-    for (int k = t; k < R; k += width, ++i) vl[i & 3] = add(vl[i & 3], x(k));
-    lane[t] = add(add(add(vl[0], vl[1]), vl[2]), vl[3]);
-  }
-  for (int off = width / 2; off > 0; off /= 2)
-    for (int t = 0; t < off; ++t) lane[t] = add(lane[t], lane[t + off]);
-  return lane[0];
-}
-// The same for three elements, written out: (x0 + x2) + x1.
-template <typename T> __device__ __forceinline__ T sum3(T x0, T x1, T x2) {
-  return add(add(z(x0), z(x2)), z(x1));
-}
-// ATen's sum over a strided dim: four accumulators over k mod 4.
-template <typename T, typename X>
-__device__ T sum_serial(int R, X x) {
-  T vl[4] = {T(0), T(0), T(0), T(0)};
-  for (int k = 0; k < R; ++k) vl[k & 3] = add(vl[k & 3], x(k));
-  return add(add(add(vl[0], vl[1]), vl[2]), vl[3]);
-}
 
 template <typename T> __device__ __forceinline__ T dot3(const T* a, const T* b) {
   return sum3(mul(a[0], b[0]), mul(a[1], b[1]), mul(a[2], b[2]));

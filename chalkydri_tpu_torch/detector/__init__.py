@@ -13,9 +13,12 @@ Threshold, CCL and extraction run fused in kernel B1
 (``ops/ccl_extract.py``); at full resolution (``quad_decimate=1``) past
 B1's frame size, threshold and CCL run in kernel B3 (through B4) or B5
 (``ops/threshold_ccl.py``). Run-length segmentation is kernel B2
-(``ops/segment_stats.py``). The package imports no submodule when it is
-imported: the ``ops`` wrappers build their plain twins from the stage
-modules here, and ``pipeline`` calls the kernels. The names below are
+(``ops/segment_stats.py``). On a card the tail is three kernels, one a
+stage (``ops/tail.py``): the quad fit with the top-k selection, the
+refinement, and the decode with the rank, dedup and compaction. The
+package imports no submodule when it is imported: the ``ops`` wrappers
+build their plain twins from the stage modules here, and ``pipeline``
+calls the kernels. The names below are
 imported from their submodules on first access.
 """
 

@@ -97,11 +97,18 @@ class Decoder(nn.Module):
             [[(c - (2 - r)) % 4 for c in range(4)] for r in range(4)]))
 
     @staticmethod
+    def normal_matrix(design: torch.Tensor) -> torch.Tensor:
+        """The intensity model's 3x3 normal matrix on design [S, 3], with a
+        1e-6 ridge (a constant of the family, computed where the design
+        lives)."""
+        eye = torch.eye(3, dtype=design.dtype, device=design.device)
+        return design.T @ design + 1e-6 * eye
+
+    @staticmethod
     def _fit_linear(design: torch.Tensor, values: torch.Tensor):
         """Least squares of values [..., S] on design [S, 3]: 3x3 normal
         matrix with a 1e-6 ridge, unpivoted SPD solve."""
-        eye = torch.eye(3, dtype=design.dtype, device=design.device)
-        ata = design.T @ design + 1e-6 * eye
+        ata = Decoder.normal_matrix(design)
         atb = values @ design  # [..., 3]
         return spd_solve(ata.expand(*atb.shape[:-1], 3, 3), atb)
 

@@ -29,8 +29,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("ccl_extract.cu", "segment_stats.cu", "threshold_ccl.cu",
-           "propagate.cu", "extract_blocked.cu", "stamp.cu", "solve.cu")
-HEADERS = ("ccl_common.cuh", "union_find.cuh")
+           "propagate.cu", "extract_blocked.cu", "stamp.cu", "solve.cu",
+           "tail.cu")
+HEADERS = ("ccl_common.cuh", "union_find.cuh", "ordered.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -66,6 +67,12 @@ _SIGNATURES = {
     "chalkydri_stage_stamp": [_P, _I, _P],
     # ptrs, ints, reals (csrc/solve.cu lists their entries), stream
     "chalkydri_solve": [_P] * 4,
+    # ptrs, ints (csrc/tail.cu lists their entries), stream
+    "chalkydri_tail_quads": [_P] * 3,
+    # ptrs, ints, reals, stream
+    "chalkydri_tail_refine": [_P] * 4,
+    # ptrs, ints, stream
+    "chalkydri_tail_decode": [_P] * 3,
 }
 
 

@@ -58,7 +58,16 @@
    from the float64 plain chain than twice the float32 twin's; its
    double instance against ``tests/reference_impl/ref_sqpnp.py`` at the
    1e-9 gates (a unit pinhole); and its time beside its bound and the
-   plain chain's;
+   plain chain's; the tail's three kernels (``ops/tail.py``: T1 the quad
+   fit and top-k selection, T2 the refinement, T3 the decode with rank,
+   dedup and compaction) against the plain chain stage by stage, bit for
+   bit, at the cells' [2, 64, 128] and [4, 64, 128] (the drives of every
+   configuration, 3 seeds; edge cases at both shapes: no valid cluster,
+   all valid, degenerate clusters, squares across the frame's edges,
+   duplicate ids, more detections than slots; each family with refine on
+   and off at quad_decimate 2 and 1), each kernel's time beside its
+   bound and the plain chain's, and the qd2 step's graph nodes with the
+   tail plain and with the kernels;
 5. drives four paths through the entry points (``build_rig_from_config``
    -> ``make_vision_pipeline`` / ``make_sharded_vision_pipeline``), each
    with the launch counts set to 0 just before it and read just after
@@ -73,7 +82,7 @@
    graph, its band CCL's seam rounds gated on the card: a fixed tally a
    replay of one B6 label call, ``2 * bands + 2`` B6 propagate calls and
    one B7 call a band, and one B2 call); every path also one launch of
-   the solve kernel a step. Each checks the ids and each
+   the solve kernel and of each tail kernel a step. Each checks the ids and each
    frame's pose against its own truth and that every kernel of the path
    launched, compares the step with the same step run on the plain twins
    only (the eager module's), and times both; the row-banded step is
@@ -278,6 +287,7 @@ class plain_twins:
         from chalkydri_tpu_torch.pipeline import FrameSolver
 
         self._saved = [(FrameSolver, "forward", FrameSolver.forward),
+                       *((det, n, getattr(det, n)) for n in TAIL_PLAIN),
                        (det, "threshold_ccl_extract", det.threshold_ccl_extract),
                        (det, "threshold_ccl", det.threshold_ccl),
                        (det, "threshold_ccl_exact", det.threshold_ccl_exact),
@@ -289,6 +299,8 @@ class plain_twins:
                        (par, "extract_candidates_band",
                         par.extract_candidates_band)]
         FrameSolver.forward = FrameSolver.forward_plain
+        for name, plain in TAIL_PLAIN.items():
+            setattr(det, name, getattr(det, plain))
         det.threshold_ccl_extract = threshold_ccl_extract_plain
         det.threshold_ccl = threshold_ccl_plain
         det.threshold_ccl_exact = threshold_ccl_exact_plain
@@ -307,6 +319,21 @@ class plain_twins:
 # The solve kernel's checks: every benchmark configuration's scenes at
 # these seeds, each drive of 14 poses seen by all its cameras.
 SOLVE_SEEDS = (2147483711, 3000000019, 4052555153, 5000000111, 6442450967)
+# The tail kernels (ops/tail.py, csrc/tail.cu) by their counters' names;
+# their checks' seeds (every benchmark configuration's drives); the plain
+# chain's stage functions that ``plain_twins`` and ``plain_tail`` put in
+# their place; operations they need a cluster point (T1: four EM
+# rounds of ~144 and the initial fit, counted from the code) and a
+# candidate (T2: 32 lanes of 9 bilinear samples, their sums and the line
+# fit; T3: the normal equations, the 8-step elimination, ~35 a sample, the
+# fits, 4 a code word).
+TAIL_KERNELS = ("fit_select", "refine_corners", "decode_rank")
+TAIL_SEEDS = SOLVE_SEEDS[:3]
+TAIL_PLAIN = {"select_quads": "select_quads_plain",
+              "refine_corners": "refine_quads",
+              "decode_rank": "decode_rank_plain"}
+TAIL_POINT_OPS, TAIL_REFINE_OPS, TAIL_DECODE_OPS, TAIL_WORD_OPS = (
+    600, 7_000, 7_000, 4)
 # tests/test_solver.py::test_matches_numpy_reference's seeds by tag count
 ORACLE_SEEDS = ((2, (0, 1, 2, 3, 4, 7, 8, 9)), (3, (0, 1, 2, 3, 4, 5, 7, 8)))
 ORACLE_TOL = 1e-9  # tests/test_torch_gates.py's position, rotation, std
@@ -811,6 +838,451 @@ def solve_work(b: int, t: int, max_iter: int = 15,
                  + 25 * (20 + 3 * 25 * 10) + 36 * 10  # Jacobi, basis
                  + c * (400 + max_iter * 3000 + 180 + n * 7 + 100))
     return bytes_moved, b * per_frame
+
+
+# -- the tail kernels (ops/tail.py, csrc/tail.cu) ---------------------------
+
+def same_bits(a, b) -> bool:
+    """``a`` and ``b`` equal bit for bit (NaNs of any payload alike)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        nan = torch.isnan(a)
+        if not torch.equal(nan, torch.isnan(b)):
+            return False
+        a, b = torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)
+        return torch.equal(_bits(a), _bits(b))
+    return torch.equal(a, b)
+
+
+class TailGaps:
+    """The tail kernels' stage outputs against the plain chain's."""
+
+    def __init__(self):
+        self.calls = 0
+        self.bad = []  # "label: field" of each output that differs
+
+    def add(self, label, names, got, want) -> None:
+        for name, g, w in zip(names, got, want):
+            if not same_bits(g, w):
+                self.bad.append(f"{label}: {name}")
+
+    def check(self, what) -> None:
+        if self.bad:
+            raise AssertionError(f"{what}: the tail kernels differ from the "
+                                 f"plain chain in {len(self.bad)} outputs: "
+                                 f"{self.bad[:8]}")
+
+
+def tail_clusters(det, gray):
+    """The detector's clusters of frames ``gray`` (its stages up to B2)."""
+    from chalkydri_tpu_torch.detector.cluster import cluster_candidates_batched
+    from chalkydri_tpu_torch.detector.pipeline import decimate2
+
+    small = decimate2(gray) if det.quad_decimate == 2 else gray.contiguous()
+    black, white, payload, dropped = det.candidates(small)
+    return cluster_candidates_batched(
+        black, white, payload, max_points=det.edge_cap,
+        max_clusters=det.max_clusters, cluster_points=det.cluster_points,
+        dropped=dropped)
+
+
+def tail_compare(det, gray, cl, gaps, label, max_detections=None):
+    """T1-T3 against the plain chain on one batch, stage by stage, each
+    kernel fed the plain chain's previous stage: T1's quads of every
+    cluster and its selection, T2's corners, T3's decode of every
+    candidate and its detections. Returns the plain chain's (corners
+    decoded, their valid, the ``Decoded``)."""
+    import torch
+
+    from chalkydri_tpu_torch.detector import pipeline as dp
+    from chalkydri_tpu_torch.detector.quad import fit_quads
+    from chalkydri_tpu_torch.ops import tail
+
+    kw = det._wide_kwargs
+    qd, kq = kw["quad_decimate"], kw["max_quad_candidates"]
+    d = max_detections or kw["max_detections"]
+    with torch.no_grad():
+        q = fit_quads(cl.points, cl.mask, cl.valid)
+        corners, valid = dp.select_quads_plain(cl, kq, qd)
+        kquads, kc, kv = tail.fit_select(cl.points, cl.mask, cl.valid,
+                                         cl.count, kq, qd)
+        gaps.add(label, ("quads' corners", "quads' valid", "corners",
+                         "valid"), (kquads.corners, kquads.valid, kc, kv),
+                 (q.corners, q.valid, corners, valid))
+        if kw["refine"]:
+            refined = dp.refine_quads(gray, corners, valid)
+            gaps.add(label, ("refined corners",),
+                     (tail.refine_corners(gray, corners, valid),), (refined,))
+            corners = refined
+        dec = det.decode(gray, corners, valid)
+        kdec, kdets = tail.decode_rank(det.decode, gray, corners, valid, d)
+        gaps.add(label, [f"decoded {f}" for f in dec._fields], kdec, dec)
+        gaps.add(label, ("ids", "detections' corners", "margins", "hammings",
+                         "detections' valid"), kdets,
+                 dp.rank_detections(dec, d))
+    gaps.calls += 1
+    return corners, valid, dec
+
+
+def tail_drives(dev, seeds=TAIL_SEEDS, names=None):
+    """T1-T3 against the plain chain on the rendered drives of every
+    benchmark configuration (or those in ``names``) at ``seeds``, one
+    batch of the rig's cameras a pose. Returns ({clusters' shape
+    [B, K, P]: TailGaps}, {configuration: (detector, gray, clusters) of
+    its first batch})."""
+    import torch
+
+    from benchmark.scene import camera_entries, make_scene
+    from chalkydri_tpu_torch.geometry.field_layout import load_field_layout
+    from chalkydri_tpu_torch.pipeline import (
+        build_rig_from_config,
+        make_vision_pipeline,
+    )
+
+    traffic = json.load(open(os.path.join(ROOT, "benchmark", "traffic",
+                                          "live.json")))
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        configs = json.load(f)["configs"]
+    drives, first = {}, {}
+    for entry in configs:
+        name = entry["name"]
+        if names is not None and name not in names:
+            continue
+        with open(os.path.join(ROOT, entry["file"])) as f:
+            cfg = json.load(f)
+        field = os.path.join(ROOT, cfg["field"])
+        layout = load_field_layout(field, dtype=torch.float32, device=dev)
+        params, rc = build_rig_from_config(camera_entries(cfg), layout,
+                                           device=dev)
+        det = eager_of(make_vision_pipeline(
+            layout, params, rc, device=dev,
+            detector_kwargs={"quad_decimate": int(cfg["quad_decimate"])})
+        ).detector
+        for seed in seeds:
+            scene = make_scene(cfg, traffic, field, seed)
+            for k in range(len(scene.poses)):
+                gray = torch.from_numpy(np.stack(
+                    [f[k] for f in scene.frames])).to(dev)
+                with torch.no_grad():
+                    cl = tail_clusters(det, gray)
+                shape = tuple(cl.mask.shape)
+                tail_compare(det, gray, cl, drives.setdefault(shape,
+                                                              TailGaps()),
+                             f"{name} seed {seed} pose {k}")
+                first.setdefault(name, (det, gray, cl))
+    return drives, first
+
+
+def square_points(cx, cy, half, angle, p, jitter, seed):
+    """``p`` boundary points of a square (numpy [2, p]): ``p // 4`` an
+    edge, evenly spaced, each moved by up to ``jitter`` pixels."""
+    rng = np.random.default_rng(seed)
+    t = (np.arange(p) % (p // 4) + 0.5) / (p // 4) * 2.0 - 1.0
+    e = np.arange(p) // (p // 4) % 4
+    u = np.where(e == 0, t, np.where(e == 1, 1.0, np.where(e == 2, -t, -1.0)))
+    v = np.where(e == 0, -1.0, np.where(e == 1, t, np.where(e == 2, 1.0, -t)))
+    c, s = np.cos(angle), np.sin(angle)
+    x = cx + half * (c * u - s * v) + rng.uniform(-jitter, jitter, p)
+    y = cy + half * (s * u + c * v) + rng.uniform(-jitter, jitter, p)
+    return np.stack([x, y]).astype(np.float32)
+
+
+def tail_edge_clusters(cl, case: str, h: int, w: int):
+    """Clusters of the shape of ``cl`` for an edge case of T1 (squares
+    where the case wants valid quads) in an ``h`` x ``w`` quad-search
+    frame."""
+    import torch
+
+    from chalkydri_tpu_torch.detector.cluster import Clusters
+
+    b, _, k, p = cl.points.shape
+    pts = np.zeros((b, 4, k, p), np.float32)
+    mask = np.ones((b, k, p), bool)
+    valid = np.ones((b, k), bool)
+    count = np.zeros((b, k), np.int32)
+    for f in range(b):
+        for c in range(k):
+            seed = 1000 * f + c
+            half = 8.0 + (c * 7 % 23)
+            cx = (c % 8 + 0.5) * w / 8
+            cy = (c // 8 % 8 + 0.5) * h / 8
+            if case == "border":  # squares across the frame's edges
+                cx = (-0.3 + (c % 4) * 0.1) * half if c % 2 else w - 0.6 * half
+                cy = (c // 2 % 8 + 0.5) * h / 8
+            pts[f, :2, c] = square_points(cx, cy, half, 0.1 * c + 0.05 * f, p,
+                                          0.4, seed)
+            count[f, c] = p + (c % 5)  # ties between clusters
+            if case == "degenerate" and c >= k // 2:
+                kind = c % 5
+                if kind == 0:  # every point on one line
+                    pts[f, 0, c] = np.linspace(5, 60, p)
+                    pts[f, 1, c] = 2.0 * pts[f, 0, c] + 3.0
+                elif kind == 1:  # one point
+                    pts[f, :2, c] = 17.0
+                elif kind == 2:  # three points
+                    pts[f, :2, c] = square_points(30, 30, 9, 0.2, p, 0.0,
+                                                  seed)[:, np.arange(p) % 3][:, :p]
+                elif kind == 3:  # overflows: non-finite corners
+                    pts[f, :2, c] *= np.float32(1e20)
+                else:  # few points, the rest masked off
+                    mask[f, c, 6:] = False
+                valid[f, c] = kind != 4 or c % 2 == 0
+    if case == "no valid cluster":
+        mask[:] = False
+        valid[:] = False
+        count[:] = 0
+    dev = cl.points.device
+    return Clusters(points=torch.from_numpy(pts).to(dev),
+                    mask=torch.from_numpy(mask).to(dev),
+                    count=torch.from_numpy(count).to(dev),
+                    valid=torch.from_numpy(valid).to(dev),
+                    dropped=cl.dropped)
+
+
+def tail_edge_cases(det, gray, cl, gaps) -> list:
+    """T1-T3 against the plain chain on the edge cases, at the shape of
+    the clusters ``cl``: no valid cluster; all K valid (ties of size);
+    degenerate clusters (collinear, one point, three points, overflowing
+    coordinates, five points) beside valid ones, so that none is picked;
+    squares across the frame's edges, whose samples clamp; and, on the
+    drive's own candidates, duplicate ids and more valid detections than
+    slots. Returns the cases' names."""
+    import torch
+
+    b = gray.shape[0]
+    h, w = gray.shape[1:]
+    if det.quad_decimate == 2:
+        h, w = h // 2, w // 2
+    cases = ["no valid cluster", "all valid", "degenerate", "border"]
+    for case in cases:
+        tail_compare(det, gray, tail_edge_clusters(cl, case, h, w), gaps,
+                     f"edge case {case} at {list(cl.mask.shape)}")
+    corners, valid, _ = tail_compare(det, gray, cl, TailGaps(), "drive")
+    half = corners.shape[1] // 2
+    dup = torch.cat([corners[:, :half], corners[:, :half] + 0.25], dim=1)
+    dup_valid = torch.cat([valid[:, :half], valid[:, :half]], dim=1)
+    from chalkydri_tpu_torch.detector import pipeline as dp
+    from chalkydri_tpu_torch.ops import tail
+
+    with torch.no_grad():
+        for d in (1, 2, 16):
+            dec = det.decode(gray, dup, dup_valid)
+            kdec, kdets = tail.decode_rank(det.decode, gray, dup, dup_valid, d)
+            label = (f"edge case duplicate ids, {d} slots, at "
+                     f"{list(cl.mask.shape)}")
+            gaps.add(label, [f"decoded {f}" for f in dec._fields], kdec, dec)
+            gaps.add(label, ("ids", "corners", "margins", "hammings",
+                             "valid"), kdets, dp.rank_detections(dec, d))
+    return [*cases, "duplicate ids", f"more detections than slots ({b} "
+            f"frames of {int(dec.valid.sum())} valid candidates into 1 and "
+            f"2 slots)"]
+
+
+def family_frames(family, b: int, h: int, w: int, seed: int):
+    """``b`` frames of ``h`` x ``w`` with six tags of ``family`` each,
+    pasted upright at 4-7 pixels a cell on the benchmark's gray."""
+    from chalkydri_tpu_torch.detector.families import render_tag
+
+    rng = np.random.default_rng(seed)
+    frames = np.full((b, h, w), 150, np.uint8)
+    for f in range(b):
+        for i in range(6):
+            tag = render_tag(family, int(rng.integers(0, family.ncodes)),
+                             cell_px=int(rng.integers(4, 8)))
+            y = 20 + (i // 3) * (h // 2)
+            x = 20 + (i % 3) * (w // 3)
+            frames[f, y:y + tag.shape[0], x:x + tag.shape[1]] = tag
+    return frames
+
+
+def tail_families(dev) -> list:
+    """T1-T3 against the plain chain for each family, refine on and off,
+    at quad_decimate 2 and 1, on two 480 x 640 frames of the family's
+    tags ([2, 64, 128] clusters). Returns the labels checked."""
+    import torch
+
+    from chalkydri_tpu_torch.detector.families import load_family
+    from chalkydri_tpu_torch.detector.pipeline import Detector
+
+    gaps, labels = TailGaps(), []
+    for name in ("tag16h5", "tag25h9", "tag36h10", "tag36h11"):
+        fam = load_family(name)
+        gray = torch.from_numpy(family_frames(fam, 2, 480, 640, 7)).to(dev)
+        for qd in (2, 1):
+            for refine in (True, False):
+                det = Detector(family=fam, quad_decimate=qd,
+                               refine=refine).to(dev)
+                with torch.no_grad():
+                    cl = tail_clusters(det, gray)
+                label = f"{name} qd{qd} refine {'on' if refine else 'off'}"
+                _, _, dec = tail_compare(det, gray, cl, gaps, label)
+                labels.append(f"{label}: {int(dec.valid.sum())} decoded")
+    gaps.check("tail families")
+    return labels
+
+
+def graph_nodes(fn):
+    """Nodes of a CUDA graph that captures one call of ``fn`` (the
+    driver's count of the graph; None where this torch keeps no graph to
+    count)."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    try:
+        handle = graph.raw_cuda_graph()
+        n = ctypes.c_size_t(0)
+        rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+            ctypes.c_void_p(handle), None, ctypes.byref(n))
+        return int(n.value) if rc == 0 else None
+    except (AttributeError, OSError, RuntimeError):
+        return None
+
+
+class plain_tail:
+    """Within this context the detector's tail runs the plain chain on
+    CUDA tensors (``plain_twins``'s tail alone)."""
+
+    def __enter__(self):
+        import chalkydri_tpu_torch.detector.pipeline as det
+
+        self._saved = [(det, n, getattr(det, n)) for n in TAIL_PLAIN]
+        for name, plain in TAIL_PLAIN.items():
+            setattr(det, name, getattr(det, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def tail_work(b, k, p, kq, nbits, samples, nwords) -> dict:
+    """(bytes, operations) of T1-T3 at clusters [b, k, p], ``kq``
+    candidates and a family of ``nbits`` bits, ``samples`` samples and
+    ``nwords`` code words: inputs and outputs once (a bilinear sample's 4
+    pixels), the arithmetic counted from the code."""
+    t1 = (b * k * (p * 17 + 5) + b * k * 33 + b * kq * 33,
+          b * k * p * TAIL_POINT_OPS)
+    t2 = (b * kq * (33 + 32 * 9 * 4 + 32), b * kq * TAIL_REFINE_OPS)
+    t3 = (b * kq * (33 + samples * 4) + nwords * 16 + b * kq * 45
+          + b * 16 * 45,
+          b * kq * (TAIL_DECODE_OPS + nwords * TAIL_WORD_OPS))
+    return {"fit_select": t1, "refine_corners": t2, "decode_rank": t3}
+
+
+def tail_phase(dev, card) -> dict:
+    """The tail kernels (``ops/tail.py``, ``csrc/tail.cu``) against the
+    plain chain on the card, bit for bit: the drives of every benchmark
+    configuration at their shapes ([2, 64, 128] and [4, 64, 128]); the
+    edge cases at both; every family, refine on and off, quad_decimate 2
+    and 1; then each kernel's time beside its bound and the plain
+    chain's, and the replayed step's graph nodes with the tail plain and
+    with the kernels. Returns the kernel report's numbers."""
+    import torch
+
+    from chalkydri_tpu_torch.detector import pipeline as dp
+    from chalkydri_tpu_torch.ops import tail
+
+    t_phase = time.perf_counter()
+    drives, first = tail_drives(dev)
+    for shape, gaps in sorted(drives.items()):
+        gaps.check(f"tail drives at {list(shape)}")
+        print(f"tail kernels vs the plain chain, the drives at clusters "
+              f"{list(shape)}: {gaps.calls} batches, T1's quads and "
+              f"selection, T2's corners, T3's decode and detections "
+              f"bit-identical [{card}]", flush=True)
+    if sorted(drives) != [(2, 64, 128), (4, 64, 128)]:
+        raise AssertionError(f"tail drives at {sorted(drives)}, the cells' "
+                             f"[2, 64, 128] and [4, 64, 128] expected")
+    edge = TailGaps()
+    for name in ("comp2-1600x1304-qd2", "north-4x1280x800-qd2"):
+        cases = tail_edge_cases(*first[name], edge)
+    edge.check("tail edge cases")
+    print(f"tail edge cases bit-identical at [2, 64, 128] and [4, 64, 128]: "
+          f"{'; '.join(cases)} ({edge.calls} batches)", flush=True)
+    print(f"tail families bit-identical: {'; '.join(tail_families(dev))}",
+          flush=True)
+
+    det, gray, cl = first["comp2-1600x1304-qd2"]
+    kw = det._wide_kwargs
+    kq, qd, d = (kw["max_quad_candidates"], kw["quad_decimate"],
+                 kw["max_detections"])
+    corners, valid, _ = tail_compare(det, gray, cl, TailGaps(), "timing")
+    sel, sel_valid = dp.select_quads_plain(cl, kq, qd)
+    b, k, p = cl.mask.shape
+    fam = det.decode
+    work = tail_work(b, k, p, min(kq, k), len(fam.data_xy),
+                     len(fam.data_xy) + len(fam.black_xy) + len(fam.white_xy),
+                     fam.codes.shape[0])
+    stages = {
+        "fit_select": (lambda: tail.fit_select(cl.points, cl.mask, cl.valid,
+                                               cl.count, kq, qd),
+                       lambda: dp.select_quads_plain(cl, kq, qd)),
+        "refine_corners": (lambda: tail.refine_corners(gray, sel, sel_valid),
+                           lambda: dp.refine_quads(gray, sel, sel_valid)),
+        "decode_rank": (lambda: tail.decode_rank(fam, gray, corners, valid, d),
+                        lambda: dp.decode_rank_plain(fam, gray, corners,
+                                                     valid, d)),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (kernel, plain) in stages.items():
+            ms = statistics.median(cuda_times_ms(kernel))
+            plain_ms = statistics.median(cuda_times_ms(plain))
+            device_ms, launches = graph_device_ms(kernel, getattr(tail, name))
+            plain_dev_ms, _ = graph_device_ms(plain, getattr(tail, name))
+            bound_ms, bound_by = bound(*work[name])
+            print(f"tail {name} clusters {[b, k, p]}: kernel {ms:.4f} ms "
+                  f"(device {device_ms:.4f} ms a call by events over a graph "
+                  f"of 20 calls; {launches:g} launches a call counted), plain "
+                  f"{plain_ms:.4f} ms (device {plain_dev_ms:.4f} ms replayed);"
+                  f" bound {bound_ms * 1e3:.4f} us by {bound_by} "
+                  f"({work[name][1]} operations, {work[name][0]} bytes) "
+                  f"[{card}]", flush=True)
+            out[name] = {"ms": ms, "plain_ms": plain_ms,
+                         "device_ms": device_ms, "plain_device_ms": plain_dev_ms,
+                         "counted_launches_per_call": launches,
+                         "bytes": work[name][0], "ops": work[name][1]}
+    # the replayed step's graph, tail plain and tail kernels
+    from chalkydri_tpu_torch.geometry.field_layout import load_field_layout
+    from chalkydri_tpu_torch.pipeline import (
+        build_rig_from_config,
+        make_vision_pipeline,
+    )
+    from benchmark.scene import camera_entries
+
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "comp2-1600x1304-qd2.json")) as f:
+        cfg = json.load(f)
+    layout = load_field_layout(os.path.join(ROOT, cfg["field"]),
+                               dtype=torch.float32, device=dev)
+    params, rc = build_rig_from_config(camera_entries(cfg), layout, device=dev)
+    pipe = eager_of(make_vision_pipeline(layout, params, rc, device=dev))
+    gyro = torch.zeros(gray.shape[0], device=dev)
+    with torch.no_grad():
+        with plain_tail():
+            before = graph_nodes(lambda: pipe(gray, gyro))
+        after = graph_nodes(lambda: pipe(gray, gyro))
+    print(f"tail graph nodes of the comp2 qd2 step: {before} with the plain "
+          f"tail, {after} with the three kernels; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
 
 
 def require_equal(label: str, names, got, want) -> None:
@@ -1917,8 +2389,9 @@ def app_phase(dev, card, counters) -> None:
             torch.cuda.synchronize()
             launches = {name: fn.launches for name, fn in counters.items()}
             packets = [decode_measurement(d) for d in recv_all(rio)]
-            expect = {"threshold_ccl_extract": APP_ITERS,
-                      "segment_stats": APP_ITERS, "solve_frames": APP_ITERS}
+            expect = dict.fromkeys(("threshold_ccl_extract", "segment_stats",
+                                    "solve_frames", *TAIL_KERNELS),
+                                   APP_ITERS)
             if launches != {k: expect.get(k, 0) for k in launches}:
                 raise AssertionError(f"{label}: kernel launches {launches} "
                                      f"for {APP_ITERS} dispatched steps")
@@ -2096,7 +2569,7 @@ def bench_phase(dev, card, counters) -> None:
     replays = 1 + BENCH_ITERS * BENCH_REPS
     steps = WARMUP_STEPS + BENCH_ITERS + replays
     want = {name: steps if name in ("threshold_ccl_extract", "segment_stats",
-                                    "solve_frames")
+                                    "solve_frames", *TAIL_KERNELS)
             else 0 for name in counters}
     if launches != want or counters["threshold_ccl_extract"].chain_launches:
         raise AssertionError(f"bench path: kernel launches {launches} over "
@@ -2190,8 +2663,8 @@ def calibration_phase(dev, card, counters) -> None:
         raise AssertionError(f"{label}: calibrate exited {rc}, "
                              f"{feed.given} views given:\n{log.getvalue()}")
     # a replay a view, after the first view's eager warm-up steps
-    expect = {"threshold_ccl_extract": len(frames) + WARMUP_STEPS,
-              "segment_stats": len(frames) + WARMUP_STEPS}
+    expect = dict.fromkeys(("threshold_ccl_extract", "segment_stats",
+                            *TAIL_KERNELS), len(frames) + WARMUP_STEPS)
     if launches != {k: expect.get(k, 0) for k in launches}:
         raise AssertionError(f"{label}: kernel launches {launches} for "
                              f"{len(frames)} views")
@@ -2400,6 +2873,7 @@ def main() -> None:
         segment_stats,
         segment_stats_plain,
     )
+    from chalkydri_tpu_torch.ops import tail
     from chalkydri_tpu_torch.ops.solve import solve_frames
     from chalkydri_tpu_torch.ops.threshold_ccl import (
         label_components_ccl,
@@ -2521,10 +2995,16 @@ def main() -> None:
     # The solve stage's kernel against the plain chain.
     solve = solve_phase(dev, card)
 
+    # The tail's three kernels against the plain chain.
+    tail_report = tail_phase(dev, card)
+
     # -- the paths through the entry points, kernels counted --------------
     counters = {"threshold_ccl_extract": threshold_ccl_extract,
                 "segment_stats": segment_stats,
                 "solve_frames": solve_frames,
+                "fit_select": tail.fit_select,
+                "refine_corners": tail.refine_corners,
+                "decode_rank": tail.decode_rank,
                 "threshold_ccl": threshold_ccl,
                 "label_components_ccl": label_components_ccl,
                 "threshold_ccl_exact": threshold_ccl_exact,
@@ -2535,7 +3015,7 @@ def main() -> None:
     threshold_ccl_extract.chain_launches = 0
     qd2 = drive_path("qd2 main path", step, frames, poses, counters,
                      ("threshold_ccl_extract", "segment_stats",
-                      "solve_frames"), card,
+                      "solve_frames", *TAIL_KERNELS), card,
                      TIMED_STEPS["qd2"])
     if threshold_ccl_extract.chain_launches:
         raise AssertionError("qd2 main path: B1 took the chain route")
@@ -2543,13 +3023,14 @@ def main() -> None:
                                     detector_kwargs={"quad_decimate": 1})
     qd1 = drive_path("qd1 bench path", step_qd1, frames, poses, counters,
                      ("threshold_ccl", "label_components_ccl",
-                      "segment_stats", "solve_frames"), card,
+                      "segment_stats", "solve_frames", *TAIL_KERNELS), card,
                      TIMED_STEPS["qd1"])
     step_dep = make_vision_pipeline(layout, dep_params, dep_rc, device=dev,
                                     detector_kwargs={"quad_decimate": 1})
     dep = drive_path("qd1 deployed path", step_dep, dep_frames, dep_poses,
                      counters, ("threshold_ccl_exact", "segment_stats",
-                                "solve_frames"), card, TIMED_STEPS["qd1"])
+                                "solve_frames", *TAIL_KERNELS), card,
+                     TIMED_STEPS["qd1"])
 
     # The row-banded step: four bands of the one card, kernel CCL, one
     # CUDA graph replay a step.
@@ -2559,7 +3040,7 @@ def main() -> None:
     per_replay = {"label_components_blocked": BANDS,
                   "propagate_components_blocked": seam_rounds * BANDS,
                   "extract_candidates_band": BANDS, "segment_stats": 1,
-                  "solve_frames": 1}
+                  "solve_frames": 1, **dict.fromkeys(TAIL_KERNELS, 1)}
     sp_gyro = torch.tensor([p[2] for p in sp_poses], dtype=torch.float32,
                            device=dev)
     probe = torch.ones(1, device=dev)
@@ -2583,7 +3064,7 @@ def main() -> None:
             counters, ("label_components_blocked",
                        "propagate_components_blocked",
                        "extract_candidates_band", "segment_stats",
-                       "solve_frames"), card,
+                       "solve_frames", *TAIL_KERNELS), card,
             TIMED_STEPS["spatial"], against=single,
             ties_may_reorder=(qd == 2))
         if spatial[qd] != {k: STEPS * per_replay.get(k, 0) for k in counters}:
@@ -2746,6 +3227,16 @@ def main() -> None:
                           solve["ops"]),
              replaces=None, device_ms=solve["device_ms"],
              counted_launches_per_call=solve["counted_launches_per_call"]),
+        *(dict(kernel_entry(name, "tail.cu", None, qd2[name], 0.0,
+                            tail_report[name]["ms"],
+                            tail_report[name]["plain_ms"],
+                            tail_report[name]["bytes"],
+                            tail_report[name]["ops"]),
+               replaces=None, device_ms=tail_report[name]["device_ms"],
+               plain_device_ms=tail_report[name]["plain_device_ms"],
+               counted_launches_per_call=tail_report[name][
+                   "counted_launches_per_call"])
+          for name in TAIL_KERNELS),
     ]
     print(json.dumps({"kernels": report}))
     print(card_line())
