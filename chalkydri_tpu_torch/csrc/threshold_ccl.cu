@@ -75,7 +75,7 @@
 //    1066 rectangles hold tags, and the kernel lasts as long as one such
 //    CTA's chain of dependent shared-memory steps (unions, the flatten's
 //    walks, the marks), started behind the waves of skip-only CTAs
-//    (clock64 per phase: tools/b5_phases.py). 32-row rectangles and 512
+//    (clock64 per phase). 32-row rectangles and 512
 //    threads a CTA gave the shortest such chain of the shapes tried.
 
 #include <cuda_runtime.h>
@@ -184,10 +184,7 @@ struct TileSmem {
 // Launch 1: a CTA a rectangle. kVecTern: 16-byte tern stores (W % 16 == 0,
 // tern 16-byte aligned); kWordGray: 4-byte gray loads (gray 4-byte
 // aligned). The union-find runs in local indices ly * kCols + lx over the
-// shared entries (ccl::SharedPage from 0). tools/b5_phases.py times the
-// phases: it finds them by their "// k. " comments at the start of a line
-// of this kernel and the early exit by its "return;" right before the
-// "// 4. " comment, so keep those as they are.
+// shared entries (ccl::SharedPage from 0).
 template <bool kVecTern, bool kWordGray>
 __global__ void __launch_bounds__(kThreads)
     tile_kernel(const uint8_t* __restrict__ gray, int H, int W, int wp,

@@ -148,6 +148,55 @@ class Decoder(nn.Module):
         )
 
 
+def rank_detections(dec: Decoded, max_detections: int):
+    """Rank decoded candidates by decision margin (best first, stable),
+    keep a detection only if no better slot has its id, and compact to
+    ``max_detections`` slots. Returns (ids, corners, decision margins,
+    hammings, valid), each [B, max_detections, ...]."""
+    margin = torch.where(dec.valid, dec.decision_margin, -1.0)
+    order = torch.argsort(-margin, dim=1, stable=True)  # best first
+
+    def by_order(x):
+        idx = order.reshape(*order.shape, *([1] * (x.dim() - 2)))
+        return x.gather(1, idx.expand_as(x))
+
+    ids_s, margins_s = by_order(dec.tag_id), by_order(margin)
+    corners_s, ham_s = by_order(dec.corners), by_order(dec.hamming)
+    valid_s = by_order(dec.valid)
+
+    # keep a detection only if no better slot has the same id
+    k = ids_s.shape[1]
+    same = ids_s[:, None, :] == ids_s[:, :, None]  # [B, k, k]
+    earlier = torch.tril(torch.ones(k, k, dtype=torch.bool,
+                                    device=ids_s.device), diagonal=-1)
+    dup = (same & earlier & valid_s[:, None, :]).any(dim=2)
+    keep = valid_s & ~dup
+
+    pos = torch.cumsum(keep.to(torch.int32), dim=1) - 1
+    slot = torch.where(keep & (pos < max_detections), pos, max_detections)
+
+    def compact(v, fill):
+        b = v.shape[0]
+        buf = torch.full((b, max_detections + 1, *v.shape[2:]), fill,
+                         dtype=v.dtype, device=v.device)
+        idx = slot.reshape(*slot.shape, *([1] * (v.dim() - 2)))
+        buf.scatter_(1, idx.expand_as(v), v)
+        return buf[:, :max_detections]
+
+    return (compact(ids_s, -1), compact(corners_s, 0.0),
+            compact(margins_s, 0.0), compact(ham_s, 0), compact(keep, False))
+
+
+def decode_rank_plain(decoder: Decoder, gray: torch.Tensor,
+                      corners: torch.Tensor, quad_valid: torch.Tensor,
+                      max_detections: int):
+    """The decode stage in plain PyTorch (kernel T3's twin,
+    ``ops/tail.py``): ``decoder``, then ``rank_detections``. Returns
+    (``Decoded`` of every candidate, the ranked detections)."""
+    dec = decoder(gray, corners, quad_valid)
+    return dec, rank_detections(dec, max_detections)
+
+
 def make_decoder(family: TagFamily, bits_corrected: int = 2,
                  device: str | torch.device = "cuda") -> Decoder:
     """The family's ``Decoder`` with its tables on ``device`` (the card

@@ -33,7 +33,6 @@ from chalkydri_tpu_torch.detector.cluster import (
     cluster_candidates_batched,
     compact_candidates,
     extract_and_compact,
-    top_indices,
 )
 from chalkydri_tpu_torch.detector.decode import Decoder
 from chalkydri_tpu_torch.detector.families import (
@@ -42,8 +41,6 @@ from chalkydri_tpu_torch.detector.families import (
     TagFamily,
     load_family,
 )
-from chalkydri_tpu_torch.detector.quad import fit_quads
-from chalkydri_tpu_torch.detector.refine import refine_quads
 from chalkydri_tpu_torch.ops import tail
 from chalkydri_tpu_torch.ops.ccl_extract import threshold_ccl_extract
 from chalkydri_tpu_torch.ops.threshold_ccl import (
@@ -86,97 +83,6 @@ class Detections(NamedTuple):
                     yield b, int(ids[b, i]), corners[b, i], float(margins[b, i])
 
 
-def select_quads_plain(clusters, kq: int, quad_decimate: int):
-    """The quad stage in plain PyTorch: ``fit_quads``, then the ``kq`` best
-    quads by cluster size (``top_indices``, the lower index first on ties),
-    back to full-resolution coordinates at ``quad_decimate=2``. Returns
-    (corners [B, kq, 4, 2], valid [B, kq])."""
-    quads = fit_quads(clusters.points, clusters.mask, clusters.valid)
-    kq = min(kq, quads.valid.shape[1])
-    score = torch.where(quads.valid, clusters.count, -1)
-    sel = top_indices(score, kq)  # [B, kq]
-    corners = quads.corners.gather(
-        1, sel[..., None, None].expand(*sel.shape, 4, 2))
-    q_valid = quads.valid.gather(1, sel)
-    if quad_decimate == 2:
-        # decimated pixel c sits at full-resolution coordinate 2c + 0.5
-        corners = corners * 2.0 + 0.5
-    return corners, q_valid
-
-
-def rank_detections(dec, max_detections: int):
-    """Rank decoded candidates by decision margin (best first, stable),
-    keep a detection only if no better slot has its id, and compact to
-    ``max_detections`` slots. Returns (ids, corners, decision margins,
-    hammings, valid), each [B, max_detections, ...]."""
-    margin = torch.where(dec.valid, dec.decision_margin, -1.0)
-    order = torch.argsort(-margin, dim=1, stable=True)  # best first
-
-    def by_order(x):
-        idx = order.reshape(*order.shape, *([1] * (x.dim() - 2)))
-        return x.gather(1, idx.expand_as(x))
-
-    ids_s, margins_s = by_order(dec.tag_id), by_order(margin)
-    corners_s, ham_s = by_order(dec.corners), by_order(dec.hamming)
-    valid_s = by_order(dec.valid)
-
-    # keep a detection only if no better slot has the same id
-    k = ids_s.shape[1]
-    same = ids_s[:, None, :] == ids_s[:, :, None]  # [B, k, k]
-    earlier = torch.tril(torch.ones(k, k, dtype=torch.bool,
-                                    device=ids_s.device), diagonal=-1)
-    dup = (same & earlier & valid_s[:, None, :]).any(dim=2)
-    keep = valid_s & ~dup
-
-    pos = torch.cumsum(keep.to(torch.int32), dim=1) - 1
-    slot = torch.where(keep & (pos < max_detections), pos, max_detections)
-
-    def compact(v, fill):
-        b = v.shape[0]
-        buf = torch.full((b, max_detections + 1, *v.shape[2:]), fill,
-                         dtype=v.dtype, device=v.device)
-        idx = slot.reshape(*slot.shape, *([1] * (v.dim() - 2)))
-        buf.scatter_(1, idx.expand_as(v), v)
-        return buf[:, :max_detections]
-
-    return (compact(ids_s, -1), compact(corners_s, 0.0),
-            compact(margins_s, 0.0), compact(ham_s, 0), compact(keep, False))
-
-
-def decode_rank_plain(decode, gray, corners, q_valid, max_detections: int):
-    """The decode stage in plain PyTorch: ``decode``, then
-    ``rank_detections``."""
-    return rank_detections(decode(gray, corners, q_valid), max_detections)
-
-
-def select_quads(clusters, kq: int, quad_decimate: int):
-    """``select_quads_plain``: on a card one launch of T1 (``ops/tail.py``),
-    on the CPU the plain chain."""
-    if clusters.points.is_cuda:
-        _, corners, q_valid = tail.fit_select(
-            clusters.points, clusters.mask, clusters.valid, clusters.count,
-            kq, quad_decimate)
-        return corners, q_valid
-    return select_quads_plain(clusters, kq, quad_decimate)
-
-
-def refine_corners(gray, corners, q_valid):
-    """``refine_quads``: on a card one launch of T2, on the CPU the plain
-    chain."""
-    if corners.is_cuda:
-        return tail.refine_corners(gray, corners, q_valid)
-    return refine_quads(gray, corners, q_valid)
-
-
-def decode_rank(decode, gray, corners, q_valid, max_detections: int):
-    """``decode_rank_plain``: on a card one launch of T3, on the CPU the
-    plain chain."""
-    if corners.is_cuda:
-        return tail.decode_rank(decode, gray, corners, q_valid,
-                                max_detections)[1]
-    return decode_rank_plain(decode, gray, corners, q_valid, max_detections)
-
-
 def make_post_cluster(decode, refine: bool = True, quad_decimate: int = 2,
                       max_detections: int = MAX_DETECTIONS,
                       max_quad_candidates: int = 32):
@@ -184,18 +90,20 @@ def make_post_cluster(decode, refine: bool = True, quad_decimate: int = 2,
     the best ``max_quad_candidates`` quads -> back to full-resolution
     coordinates (``quad_decimate=2``) -> refine -> decode -> rank by
     decision margin -> per-id dedup -> compaction to ``max_detections``.
-    On a card each of the three stages is one kernel launch
-    (``ops/tail.py``). Inside a stamped step it stamps the ends of
-    ``quad``, ``refine`` and ``decode`` (``utils/tracing.py``)."""
+    Each of the three stages is one call of ``ops/tail.py``: a kernel
+    launch on a card, the plain chain elsewhere. Inside a stamped step it
+    stamps the ends of ``quad``, ``refine`` and ``decode``
+    (``utils/tracing.py``)."""
 
     def finish(gray, clusters):
-        corners, q_valid = select_quads(clusters, max_quad_candidates,
-                                        quad_decimate)
+        _, corners, q_valid = tail.fit_select(
+            clusters.points, clusters.mask, clusters.valid, clusters.count,
+            max_quad_candidates, quad_decimate)
         stage("quad")
         if refine:
-            corners = refine_corners(gray, corners, q_valid)
+            corners = tail.refine_corners(gray, corners, q_valid)
         stage("refine")
-        ids, corners, margins, hammings, valid = decode_rank(
+        _, (ids, corners, margins, hammings, valid) = tail.decode_rank(
             decode, gray, corners, q_valid, max_detections)
         dets = Detections(ids=ids, corners=corners, decision_margins=margins,
                           hammings=hammings, valid=valid,

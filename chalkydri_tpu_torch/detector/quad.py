@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from chalkydri_tpu_torch.detector.cluster import top_indices
+
 FIT_ITERS = 4
 MIN_EDGE_POINTS = 5
 MIN_EDGE_LEN = 6.0  # pixels
@@ -144,3 +146,24 @@ def fit_quads(points: torch.Tensor, mask: torch.Tensor,
              & (elen >= MIN_EDGE_LEN).all(dim=-1)
              & (rmss <= MAX_LINE_RMS).all(dim=-1))
     return Quads(corners=corners, valid=valid & cluster_valid)
+
+
+def fit_select_plain(points: torch.Tensor, mask: torch.Tensor,
+                     cluster_valid: torch.Tensor, count: torch.Tensor,
+                     kq: int, quad_decimate: int):
+    """The quad stage in plain PyTorch (kernel T1's twin, ``ops/tail.py``):
+    ``fit_quads``, then the ``kq`` best quads by cluster size
+    (``top_indices``, the lower index first on ties), back to
+    full-resolution coordinates at ``quad_decimate=2``. Returns (``Quads``
+    of every cluster, corners [B, kq, 4, 2], valid [B, kq])."""
+    quads = fit_quads(points, mask, cluster_valid)
+    kq = min(kq, quads.valid.shape[1])
+    score = torch.where(quads.valid, count, -1)
+    sel = top_indices(score, kq)  # [B, kq]
+    corners = quads.corners.gather(
+        1, sel[..., None, None].expand(*sel.shape, 4, 2))
+    q_valid = quads.valid.gather(1, sel)
+    if quad_decimate == 2:
+        # decimated pixel c sits at full-resolution coordinate 2c + 0.5
+        corners = corners * 2.0 + 0.5
+    return quads, corners, q_valid

@@ -8,9 +8,15 @@ Nothing here builds at import time, so the package imports on machines
 without a CUDA toolkit. First use is safe across threads (the App's
 capacity warm-up thread may reach its first kernel call with the loop):
 one lock covers the build and the load, and the temporary files carry the
-process and thread ids. The kernel wrappers count their launches here
-(``count``); a launch recorded into a CUDA graph is counted at each of
-the graph's replays (``utils/graph.py``).
+process and thread ids.
+
+Every kernel wrapper in ``ops/`` asks ``on_card`` whether to launch its
+kernel or return its plain twin's result: the kernel on CUDA tensors, the
+twin on CPU tensors and, on any device, inside ``plain_chain()`` (the
+card's checks hold each kernel to its twin on the same CUDA tensors that
+way). The wrappers count their launches here (``count``); a launch
+recorded into a CUDA graph is counted at each of the graph's replays
+(``utils/graph.py``).
 """
 
 from __future__ import annotations
@@ -110,6 +116,7 @@ def _run_all(cmds: list[list[str]]) -> None:
 _LOCK = threading.RLock()  # build() and kernel_library(), one thread at a time
 _LIBRARY: ctypes.CDLL | None = None
 _CAPTURING = threading.local()  # .tally: this thread's CUDA graph capture
+_PLAIN = threading.local()  # .on: this thread is inside plain_chain()
 
 
 def build() -> str:
@@ -162,6 +169,41 @@ def kernel_library() -> ctypes.CDLL:
 def empty(shape, dtype, like: torch.Tensor) -> torch.Tensor:
     """Uninitialised output or scratch tensor on ``like``'s device."""
     return torch.empty(shape, dtype=dtype, device=like.device)
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """Whether a kernel wrapper launches its kernel: every tensor on a CUDA
+    device and this thread outside ``plain_chain()``. When it is false the
+    wrapper returns its plain twin's result. Raises ``ValueError`` on a
+    device that is neither CUDA nor the CPU, which neither route takes."""
+    cuda = True
+    for x in tensors:
+        if x.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {x.device} (the kernels "
+                             f"take CUDA tensors, their plain twins CPU "
+                             f"or CUDA ones)")
+        cuda = cuda and x.device.type == "cuda"
+    return cuda and not getattr(_PLAIN, "on", False)
+
+
+@contextlib.contextmanager
+def plain_chain():
+    """Within this context every kernel wrapper called from this thread
+    returns its plain twin's result, CUDA tensors included. It nests, and
+    restores the state it found on exit."""
+    before = getattr(_PLAIN, "on", False)
+    _PLAIN.on = True
+    try:
+        yield
+    finally:
+        _PLAIN.on = before
+
+
+def same_device(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless the tensors are on one device."""
+    dev = tensors[0].device
+    if any(x.device != dev for x in tensors[1:]):
+        raise ValueError(f"{name}: tensors on different devices")
 
 
 def _on_current_card(like: torch.Tensor) -> bool:

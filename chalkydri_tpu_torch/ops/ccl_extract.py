@@ -2,11 +2,12 @@
 extraction.
 
 ``threshold_ccl_extract`` launches the CUDA kernel (``csrc/ccl_extract.cu``)
-on CUDA tensors and runs the plain twin ``threshold_ccl_extract_plain`` on
-CPU tensors; it replaces ``chalkydri_tpu/ops/pallas/ccl_kernel.py::
-threshold_ccl_extract_pallas``. Output, bit for bit the same on every
-route: (black, white, payload), each [B, 2*H*W] int32 in the
-direction-major order of ``detector.cluster.extract_boundary_points``.
+where ``build.on_card`` says so and returns the plain twin
+``threshold_ccl_extract_plain``'s result elsewhere; it replaces
+``chalkydri_tpu/ops/pallas/ccl_kernel.py::threshold_ccl_extract_pallas``.
+Output, bit for bit the same on every route: (black, white, payload),
+each [B, 2*H*W] int32 in the direction-major order of
+``detector.cluster.extract_boundary_points``.
 
 On the card the route is a function of the frame's shape alone
 (``cluster_size``): every frame the detector sends (up to
@@ -98,9 +99,9 @@ def threshold_ccl_extract_plain(gray: torch.Tensor, iters: int = 12,
 def threshold_ccl_extract(gray: torch.Tensor, iters: int = 12,
                           min_diff: int = MIN_WHITE_BLACK_DIFF):
     """gray [B, H, W] uint8 (H, W multiples of 4) -> (black, white,
-    payload), each [B, 2*H*W] int32. CUDA tensors launch the kernel; CPU
-    tensors take the plain twin."""
-    if gray.device.type == "cpu":
+    payload), each [B, 2*H*W] int32: the kernel on the card, else the
+    plain twin (``build.on_card``)."""
+    if not build.on_card(gray):
         return threshold_ccl_extract_plain(gray, iters, min_diff)
     return threshold_ccl_extract_rounds(gray, iters, min_diff)[0]
 
@@ -112,7 +113,7 @@ def threshold_ccl_extract_rounds(gray: torch.Tensor, iters: int = 12,
     changed none of its labels (the rounds it needs and the confirming
     one, at most ``iters``); the plain twin runs ``iters`` rounds, which
     gives the same pages, and counts what the kernel would run."""
-    if gray.device.type == "cpu":
+    if not build.on_card(gray):
         tern = adaptive_threshold(gray, min_diff=min_diff)
         rounds = (rounds_needed(tern, iters) + 1).clamp(max=iters)
         return (threshold_ccl_extract_plain(gray, iters, min_diff),

@@ -2,8 +2,9 @@
 whole frames or row bands with halo rows.
 
 ``extract_candidates_band`` launches the CUDA kernel
-(``csrc/extract_blocked.cu``) on CUDA tensors and runs the plain twin
-``extract_candidates_band_plain`` on CPU tensors; it replaces
+(``csrc/extract_blocked.cu``) where ``build.on_card`` says so and returns
+the plain twin ``extract_candidates_band_plain``'s result elsewhere; it
+replaces
 ``chalkydri_tpu/ops/pallas/ccl_kernel.py::extract_candidates_blocked_pallas``,
 whose body extracts one row block with one halo row above and two below
 and the block's frame row in the payload. Here that block is the caller's
@@ -55,9 +56,9 @@ def extract_candidates_band(tern_ext: torch.Tensor, labels_ext: torch.Tensor,
     """tern_ext [B, Hext, W] uint8 and labels_ext [B, Hext, W] int32, the
     band's Hc core rows between ``halo_top`` rows above and ``halo_bottom``
     below -> (black, white, payload), each [B, 2*Hc*W] int32, with frame
-    row ``y_offset`` + core row in the payload. CUDA tensors launch the
-    kernel; CPU tensors take the plain twin."""
-    if tern_ext.device.type == "cpu":
+    row ``y_offset`` + core row in the payload. The kernel on the card,
+    else the plain twin."""
+    if not build.on_card(tern_ext):
         return extract_candidates_band_plain(tern_ext, labels_ext, halo_top,
                                              halo_bottom, y_offset)
     check_frames(tern_ext, "extract_candidates_band", tiles=False)

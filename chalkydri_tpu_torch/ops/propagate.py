@@ -31,9 +31,10 @@ callers send, take the global-memory union-find that B5 shares (3 and 5
 launches). ``.launches`` counts the calls that launched, and
 ``.global_launches`` the large-frame route's share of them.
 
-Each wrapper launches its kernel on CUDA tensors and runs its plain twin
-(``segment.label_components_exact``) on CPU tensors; the two agree bit for
-bit, and with the JAX package wherever its own certificate holds.
+Each wrapper launches its kernel where ``build.on_card`` says so and
+returns its plain twin's result (``segment.label_components_exact``)
+elsewhere; the two agree bit for bit, and with the JAX package wherever
+its own certificate holds.
 """
 
 from __future__ import annotations
@@ -99,9 +100,9 @@ def label_components_blocked_plain(tern: torch.Tensor,
 def label_components_blocked(tern: torch.Tensor, want_converged: bool = False):
     """tern [B, H, W] uint8 -> labels [B, H, W] int32 at the frame-local
     fixed point, padded-flat (``INVALID`` on skip pixels); with
-    ``want_converged`` also the certificate, constant true. CUDA tensors
-    launch the kernel; CPU tensors take the plain twin."""
-    if tern.device.type == "cpu":
+    ``want_converged`` also the certificate, constant true. The kernel on
+    the card, else the plain twin."""
+    if not build.on_card(tern):
         return label_components_blocked_plain(tern, want_converged)
     check_frames(tern, "label_components_blocked", tiles=False)
     b, h, w = tern.shape
@@ -179,9 +180,9 @@ def propagate_components_blocked(tern: torch.Tensor, labels: torch.Tensor,
     minimum label of its component; with ``want_converged`` also the
     certificate, constant true. ``active`` ([B] int32, or None: every
     frame): a frame whose flag is 0 gets ``labels`` back unchanged (on the
-    card its launch copies them). CUDA tensors launch the kernel; CPU
-    tensors take the plain twin."""
-    if tern.device.type == "cpu":
+    card its launch copies them). The kernel on the card, else the plain
+    twin."""
+    if not build.on_card(tern):
         return propagate_components_blocked_plain(tern, labels, want_converged,
                                                   active)
     _check_propagate_inputs(tern, labels, active)

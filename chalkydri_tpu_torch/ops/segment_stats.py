@@ -1,9 +1,10 @@
 """Kernel B2: run-length segment statistics over sorted cluster keys.
 
-``segment_stats`` launches the CUDA kernel (``csrc/segment_stats.cu``) on
-CUDA tensors and runs the plain twin ``segment_stats_plain`` on CPU
-tensors; it replaces ``chalkydri_tpu/ops/pallas/segment_kernel.py::
-segment_stats_pallas`` (whose plain twin is ``_segment_jnp`` in
+``segment_stats`` launches the CUDA kernel (``csrc/segment_stats.cu``)
+where ``build.on_card`` says so and returns the plain twin
+``segment_stats_plain``'s result elsewhere; it replaces
+``chalkydri_tpu/ops/pallas/segment_kernel.py::segment_stats_pallas``
+(whose plain twin is ``_segment_jnp`` in
 ``chalkydri_tpu/detector/cluster.py``).
 
 For [B, n] int32 keys sorted per row (INT_MAX = invalid) and payloads:
@@ -98,12 +99,10 @@ def pad_to_chunks(s_key: torch.Tensor, s_payload: torch.Tensor):
 
 def segment_stats(s_key: torch.Tensor, s_payload: torch.Tensor):
     """(t, cand_len, cand_pos) for [B, n] int32 sorted keys and payloads.
-    CUDA tensors launch the kernel (rows padded to a multiple of 128 for
-    it); CPU tensors take the plain twin."""
-    if s_key.device.type == "cpu":
+    The kernel on the card (rows padded to a multiple of 128 for it), else
+    the plain twin."""
+    if not build.on_card(s_key):
         return segment_stats_plain(s_key, s_payload)
-    if s_key.device.type != "cuda":
-        raise ValueError(f"segment_stats: unsupported device {s_key.device}")
     for x in (s_key, s_payload):
         if x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous():
             raise ValueError("segment_stats: expected contiguous [B, n] int32")

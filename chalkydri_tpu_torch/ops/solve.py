@@ -2,9 +2,9 @@
 
 ``solve_frames`` computes ``pipeline.FrameSolver.forward`` (the id
 lookup, the undistortion, SQPnP and the robot pose), a CTA a frame, in
-one launch. It takes CUDA tensors only: ``FrameSolver.forward`` runs the
-plain twin (``FrameSolver.forward_plain``) on CPU tensors and nothing
-else. The kernel replaces no TPU kernel (the JAX package's solver is
+one launch where ``build.on_card`` says so, and returns its plain twin's
+result (``solver/robot_pose.py::solve_frames_plain``) elsewhere. The
+kernel replaces no TPU kernel (the JAX package's solver is
 plain ``jnp`` under ``jit``); it repeats the plain chain's arithmetic in
 the plain chain's order, so that on the card the two agree bit for bit at
 the step's shape (float32; the double instance for the float64 oracle).
@@ -22,6 +22,7 @@ import torch
 from chalkydri_tpu_torch.geometry.camera import UNDISTORT_ITERS
 from chalkydri_tpu_torch.geometry.tags import TAG_SIZE
 from chalkydri_tpu_torch.ops import build
+from chalkydri_tpu_torch.solver.robot_pose import solve_frames_plain
 
 MAX_TAGS = 64  # tag slots a frame (csrc/solve.cu::MAX_TAGS)
 N_EIGVECS = 4  # solver/sqpnp.py::solve_candidates's eigenvectors
@@ -36,17 +37,6 @@ def solve_threads(t: int) -> int:
         raise ValueError(f"solve: {t} tag slots a frame, the kernel takes "
                          f"1 to {MAX_TAGS}")
     return 32 * max(N_CAND, -(-4 * t // 32))
-
-
-def _check_cuda(name: str, *tensors) -> None:
-    for x in tensors:
-        if x.device.type != "cuda":
-            raise ValueError(f"{name}: unsupported device {x.device} (the "
-                             f"kernel takes CUDA tensors; the plain twin "
-                             f"takes CPU ones)")
-    dev = tensors[0].device
-    if any(x.device != dev for x in tensors):
-        raise ValueError(f"{name}: tensors on different devices")
 
 
 def _dtype(*tensors) -> torch.dtype:
@@ -81,9 +71,15 @@ def solve_frames(ids, corners, valid, margins, rot_table, t_table, present,
     rot_table [L, 3, 3], t_table [L, 3], present [L] bool; per camera
     cam_params [B, 9], rc_rot [B, 3, 3], rc_t [B, 3], gyro [B]. Returns
     (rotation [B, 3, 3], position [B, 3], std_devs [B, 3], valid [B],
-    n_tags [B] int32), in the floating inputs' promoted dtype."""
-    _check_cuda("solve_frames", ids, corners, valid, margins, rot_table,
-                t_table, present, cam_params, rc_rot, rc_t, gyro)
+    n_tags [B] int32), in the floating inputs' promoted dtype on the
+    kernel's route."""
+    args = (ids, corners, valid, margins, rot_table, t_table, present,
+            cam_params, rc_rot, rc_t, gyro)
+    if not build.on_card(ids):
+        return solve_frames_plain(
+            *args, tag_size=tag_size, sign_flip=sign_flip,
+            decision_margin_min=decision_margin_min, max_iter=max_iter)
+    build.same_device("solve_frames", *args)
     b, t = ids.shape
     if (tuple(corners.shape) != (b, t, 4, 2) or tuple(valid.shape) != (b, t)
             or tuple(margins.shape) != (b, t)):

@@ -2,19 +2,20 @@
 launch a stage:
 
 - T1 ``fit_select``: ``detector/quad.py::fit_quads``, then the top-``kq``
-  selection of ``detector/pipeline.py::select_quads_plain`` (scaled to
-  full resolution at ``quad_decimate`` 2);
-- T2 ``refine_corners``: ``detector/refine.py::refine_quads``;
+  selection (scaled to full resolution at ``quad_decimate`` 2); its plain
+  twin is ``detector/quad.py::fit_select_plain``;
+- T2 ``refine_corners``: ``detector/refine.py::refine_quads``, its twin;
 - T3 ``decode_rank``: ``detector/decode.py::Decoder.forward``, then
-  ``detector/pipeline.py::rank_detections`` (rank by decision margin,
-  per-id dedup, compaction).
+  ``rank_detections`` (rank by decision margin, per-id dedup,
+  compaction); its twin is ``detector/decode.py::decode_rank_plain``.
 
-They take CUDA tensors only, and raise ``ValueError`` on a shape, type or
-device they cannot take (shapes first): ``detector/pipeline.py`` runs the
-plain chain on CPU tensors and nothing else. The kernels replace no TPU kernel
-(the JAX package's tail is plain ``jnp`` under ``jit``); they repeat the
-plain chain's arithmetic in its order, so that on the card the two agree
-bit for bit at the cells' shapes ([2, 64, 128] and [4, 64, 128] into T1).
+Each wrapper launches its kernel where ``build.on_card`` says so and
+returns its twin's result elsewhere, in the same structure. The kernel
+route raises ``ValueError`` on a shape, type or device it cannot take.
+The kernels replace no TPU kernel (the JAX package's tail is plain
+``jnp`` under ``jit``); they repeat the plain chain's arithmetic in its
+order, so that on the card the two agree bit for bit at the cells'
+shapes ([2, 64, 128] and [4, 64, 128] into T1).
 Each launch geometry and shared-memory size below is a pure function of
 what the wrapper sees in its inputs. Launches are counted in
 ``<wrapper>.launches`` (``ops/build.py::count``).
@@ -27,9 +28,14 @@ import ctypes
 import numpy as np
 import torch
 
-from chalkydri_tpu_torch.detector.decode import Decoded
-from chalkydri_tpu_torch.detector.quad import Quads
-from chalkydri_tpu_torch.detector.refine import N_SAMPLES, N_WALK, WALK_RANGE
+from chalkydri_tpu_torch.detector.decode import Decoded, decode_rank_plain
+from chalkydri_tpu_torch.detector.quad import Quads, fit_select_plain
+from chalkydri_tpu_torch.detector.refine import (
+    N_SAMPLES,
+    N_WALK,
+    WALK_RANGE,
+    refine_quads,
+)
 from chalkydri_tpu_torch.ops import build
 
 MAX_POINTS = 128  # points a cluster (csrc/tail.cu::MAX_P)
@@ -81,17 +87,6 @@ def decode_shared_bytes(kq: int, nwords: int) -> int:
     return n
 
 
-def _check_cuda(name: str, *tensors) -> None:
-    for x in tensors:
-        if x.device.type != "cuda":
-            raise ValueError(f"{name}: unsupported device {x.device} (the "
-                             f"kernel takes CUDA tensors; the plain chain "
-                             f"takes CPU ones)")
-    dev = tensors[0].device
-    if any(x.device != dev for x in tensors):
-        raise ValueError(f"{name}: tensors on different devices")
-
-
 def _expect(name: str, x: torch.Tensor, shape: tuple, dtype) -> torch.Tensor:
     if tuple(x.shape) != shape or x.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype} {list(shape)}, got "
@@ -114,6 +109,9 @@ def fit_select(points: torch.Tensor, mask: torch.Tensor,
     [B, K] bool, count [B, K] int32 -> (``Quads`` of every cluster, the
     ``min(kq, K)`` best quads' corners [B, kq, 4, 2] (times 2 plus 0.5 at
     ``quad_decimate`` 2) and valid [B, kq])."""
+    if not build.on_card(points):
+        return fit_select_plain(points, mask, cluster_valid, count, kq,
+                                quad_decimate)
     if points.dim() != 4 or points.shape[1] != 4:
         raise ValueError("fit_select: expected points [B, 4, K, P]")
     if quad_decimate not in (1, 2):
@@ -125,7 +123,7 @@ def fit_select(points: torch.Tensor, mask: torch.Tensor,
     mask = _expect("fit_select", mask, (b, k, p), torch.bool)
     cluster_valid = _expect("fit_select", cluster_valid, (b, k), torch.bool)
     count = _expect("fit_select", count, (b, k), torch.int32)
-    _check_cuda("fit_select", points, mask, cluster_valid, count)
+    build.same_device("fit_select", points, mask, cluster_valid, count)
     corners = build.empty((b, k, 4, 2), torch.float32, points)
     valid = build.empty((b, k), torch.bool, points)
     sel = build.empty((b, kq, 4, 2), torch.float32, points)
@@ -150,6 +148,8 @@ def refine_corners(gray: torch.Tensor, corners: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
     """T2: gray [B, H, W] uint8, corners [B, kq, 4, 2], valid [B, kq] ->
     refined corners [B, kq, 4, 2] (``refine_quads`` at its defaults)."""
+    if not build.on_card(corners):
+        return refine_quads(gray, corners, valid)
     if gray.dim() != 3 or corners.dim() != 4:
         raise ValueError("refine_corners: expected gray [B, H, W] and "
                          "corners [B, kq, 4, 2]")
@@ -159,7 +159,7 @@ def refine_corners(gray: torch.Tensor, corners: torch.Tensor,
     gray = _expect("refine_corners", gray, (b, h, w), torch.uint8)
     corners = _expect("refine_corners", corners, (b, kq, 4, 2), torch.float32)
     valid = _expect("refine_corners", valid, (b, kq), torch.bool)
-    _check_cuda("refine_corners", gray, corners, valid)
+    build.same_device("refine_corners", gray, corners, valid)
     out = build.empty((b, kq, 4, 2), torch.float32, corners)
     if b > 0:
         ints = (ctypes.c_int * 5)(b, h, w, kq, threads)
@@ -195,6 +195,9 @@ def decode_rank(decoder, gray: torch.Tensor, corners: torch.Tensor,
     per-id dedup and the compaction to ``max_detections`` slots. Returns
     (``Decoded`` of every candidate, (ids, corners, decision margins,
     hammings, valid) of the detections)."""
+    if not build.on_card(corners):
+        return decode_rank_plain(decoder, gray, corners, quad_valid,
+                                 max_detections)
     if gray.dim() != 3 or corners.dim() != 4:
         raise ValueError("decode_rank: expected gray [B, H, W] and corners "
                          "[B, kq, 4, 2]")
@@ -214,7 +217,8 @@ def decode_rank(decoder, gray: torch.Tensor, corners: torch.Tensor,
     gray = _expect("decode_rank", gray, (b, h, w), torch.uint8)
     corners = _expect("decode_rank", corners, (b, kq, 4, 2), torch.float32)
     quad_valid = _expect("decode_rank", quad_valid, (b, kq), torch.bool)
-    _check_cuda("decode_rank", gray, corners, quad_valid, decoder.codes)
+    build.same_device("decode_rank", gray, corners, quad_valid,
+                      decoder.codes)
     grid, ata = _decoder_tables(decoder, gray.device)
     codes = decoder.codes.contiguous()
     f32, i32 = torch.float32, torch.int32

@@ -20,9 +20,9 @@ labeling for the full-resolution quad search (``quad_decimate=1``).
   components that cross them. It has no ``block_rows``, ``merge`` or
   ``merge_rounds``: here they would change nothing it returns.
 
-Each wrapper launches its kernel (``csrc/threshold_ccl.cu``) on CUDA
-tensors and runs its plain twin on CPU tensors; tern, labels and their
-twins agree bit for bit.
+Each wrapper launches its kernel (``csrc/threshold_ccl.cu``) where
+``build.on_card`` says so and returns its plain twin's result elsewhere;
+tern, labels and their twins agree bit for bit.
 """
 
 from __future__ import annotations
@@ -57,9 +57,8 @@ def threshold_ccl_plain(gray: torch.Tensor, iters: int = 12,
 def threshold_ccl(gray: torch.Tensor, iters: int = 12,
                   min_diff: int = MIN_WHITE_BLACK_DIFF):
     """gray [B, H, W] uint8 (H, W multiples of 4) -> (tern uint8, labels
-    int32), each [B, H, W]. CUDA tensors launch the kernels; CPU tensors
-    take the plain twin."""
-    if gray.device.type == "cpu":
+    int32), each [B, H, W]: the kernels on the card, else the plain twin."""
+    if not build.on_card(gray):
         return threshold_ccl_plain(gray, iters, min_diff)
     check_frames(gray, "threshold_ccl")
     if iters < 0:
@@ -80,9 +79,9 @@ threshold_ccl.launches = 0
 
 def label_components_ccl(tern: torch.Tensor, iters: int = 12) -> torch.Tensor:
     """tern [B, H, W] uint8 -> labels [B, H, W] int32 after ``iters``
-    rounds (``INVALID`` on skip pixels). CUDA tensors launch the kernel;
-    CPU tensors take the plain twin ``segment.label_components``."""
-    if tern.device.type == "cpu":
+    rounds (``INVALID`` on skip pixels): the kernel on the card, else the
+    plain twin ``segment.label_components``."""
+    if not build.on_card(tern):
         return label_components(tern, iters=iters)
     return label_components_ccl_rounds(tern, iters)[0]
 
@@ -93,7 +92,7 @@ def label_components_ccl_rounds(tern: torch.Tensor, iters: int = 12):
     none of its labels (the rounds it needs and the confirming one, at
     most ``iters``); the plain twin runs ``iters`` rounds, which gives the
     same labels, and counts what the kernel would run."""
-    if tern.device.type == "cpu":
+    if not build.on_card(tern):
         rounds = (rounds_needed(tern, iters) + 1).clamp(max=iters)
         return label_components(tern, iters=iters), rounds.to(torch.int32)
     check_frames(tern, "label_components_ccl", tiles=False)
@@ -125,9 +124,8 @@ def threshold_ccl_exact(gray: torch.Tensor,
                         min_diff: int = MIN_WHITE_BLACK_DIFF):
     """gray [B, H, W] uint8 (H, W multiples of 4) -> (tern uint8, labels
     int32), each [B, H, W], the labels at the global fixed point in
-    padded-flat indices. CUDA tensors launch the kernel; CPU tensors take
-    the plain twin."""
-    if gray.device.type == "cpu":
+    padded-flat indices: the kernel on the card, else the plain twin."""
+    if not build.on_card(gray):
         return threshold_ccl_exact_plain(gray, min_diff)
     check_frames(gray, "threshold_ccl_exact")
     b, h, w = gray.shape

@@ -368,6 +368,9 @@ def _make_spatial_step(
         # 3. CCL with seam exchange
         impl = ccl_impl
         if impl == "auto":
+            # The JAX package's ccl_impl: a choice of seam algorithm by
+            # device, not of kernel or twin. Inside build.plain_chain() a
+            # card keeps the kernel-rounds algorithm, with B6's twins.
             impl = "pallas" if terns[0].device.type == "cuda" else "jnp"
         if impl == "jnp":
             labels = label_components_block(terns, ccl_iters)

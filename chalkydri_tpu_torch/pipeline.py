@@ -47,7 +47,6 @@ from chalkydri_tpu_torch.ops.solve import solve_frames
 from chalkydri_tpu_torch.solver.robot_pose import (
     SIGN_FLIP_CONST,
     RobotPoseResult,
-    solve_robot_pose,
 )
 from chalkydri_tpu_torch.solver.sqpnp import MAX_ITER
 from chalkydri_tpu_torch.utils.graph import CapturedStep
@@ -85,31 +84,14 @@ class FrameSolver(nn.Module):
         self.decision_margin_min = decision_margin_min
 
     def forward(self, dets: Detections, cam_params, rc_rot, rc_t, gyro):
-        """CPU tensors take the plain twin (``forward_plain``); CUDA
-        tensors one launch of the solve kernel (``ops/solve.py``)."""
-        if dets.ids.device.type == "cpu":
-            return self.forward_plain(dets, cam_params, rc_rot, rc_t, gyro)
+        """One call of ``ops/solve.py::solve_frames``: the solve kernel on
+        a card, its plain twin elsewhere."""
         rot, pos, std, ok, n_tags = solve_frames(
             dets.ids, dets.corners, dets.valid, dets.decision_margins,
             self.rot_table, self.t_table, self.present, cam_params, rc_rot,
             rc_t, gyro, tag_size=self.tag_size, sign_flip=self.sign_flip,
             decision_margin_min=self.decision_margin_min, max_iter=MAX_ITER)
         return RobotPoseResult(rot, pos, std, ok), n_tags
-
-    def forward_plain(self, dets: Detections, cam_params, rc_rot, rc_t, gyro):
-        """The plain PyTorch solve, on any device."""
-        ids = dets.ids  # [B, D]
-        idx = torch.clamp(ids, 0, self.present.shape[0] - 1).to(torch.int64)
-        known = self.present[idx] & (ids >= 0) & dets.valid
-        if self.decision_margin_min > 0:
-            known = known & (dets.decision_margins > self.decision_margin_min)
-        rays, conv = OpenCVModel5(cam_params).unproject(dets.corners)
-        tag_ok = known & conv.all(dim=-1)  # drop tags with bad corners
-        res = solve_robot_pose(self.rot_table[idx], self.t_table[idx], tag_ok,
-                               rays, SE3(rc_rot, rc_t), gyro,
-                               sign_change_error=self.sign_flip,
-                               tag_size=self.tag_size)
-        return res, tag_ok.sum(dim=-1).to(torch.int32)
 
 
 def make_frame_solver(layout: FieldLayout, tag_size: float = TAG_SIZE,

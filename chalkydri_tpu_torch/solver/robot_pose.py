@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from chalkydri_tpu_torch.geometry.camera import OpenCVModel5
 from chalkydri_tpu_torch.geometry.tags import TAG_SIZE, corners_world
 from chalkydri_tpu_torch.geometry.transforms import (
     SE3,
@@ -136,6 +137,29 @@ def solve_robot_pose_batched(
         SE3(robot_to_cam_rot, robot_to_cam_t), gyro,
         sign_change_error=sign_change_error, max_iter=max_iter,
         tag_size=tag_size)
+
+
+def solve_frames_plain(ids, corners, valid, margins, rot_table, t_table,
+                       present, cam_params, rc_rot, rc_t, gyro, *,
+                       tag_size: float, sign_flip: float,
+                       decision_margin_min: float, max_iter: int):
+    """The solve stage in plain PyTorch (kernel S1's twin,
+    ``ops/solve.py::solve_frames``, which documents the arguments): look
+    up each detected id's tag pose in the layout's tables, unproject the
+    corners through each camera's lens, ``solve_robot_pose``. Returns
+    (rotation [B, 3, 3], position [B, 3], std_devs [B, 3], valid [B],
+    n_tags [B] int32)."""
+    idx = torch.clamp(ids, 0, present.shape[0] - 1).to(torch.int64)
+    known = present[idx] & (ids >= 0) & valid
+    if decision_margin_min > 0:
+        known = known & (margins > decision_margin_min)
+    rays, conv = OpenCVModel5(cam_params).unproject(corners)
+    tag_ok = known & conv.all(dim=-1)  # drop tags with bad corners
+    res = solve_robot_pose(rot_table[idx], t_table[idx], tag_ok, rays,
+                           SE3(rc_rot, rc_t), gyro,
+                           sign_change_error=sign_flip, max_iter=max_iter,
+                           tag_size=tag_size)
+    return (*res, tag_ok.sum(dim=-1).to(torch.int32))
 
 
 class SqPnP:

@@ -85,7 +85,8 @@
    the solve kernel and of each tail kernel a step. Each checks the ids and each
    frame's pose against its own truth and that every kernel of the path
    launched, compares the step with the same step run on the plain twins
-   only (the eager module's), and times both; the row-banded step is
+   only (the eager module's, inside ``build.plain_chain()``, where no
+   kernel may launch), and times both; the row-banded step is
    also held against the single-card step on the same frames, and run,
    eager and replayed, under PyTorch's sync debug mode "error", which
    raises at a host read (none may come), beside the seam rounds each
@@ -261,77 +262,82 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-class plain_twins:
-    """Within this context the detector and the solver call the kernels'
-    plain twins on CUDA tensors (the module attributes the detector's
-    functions look up per call, and ``FrameSolver.forward``)."""
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port by its launch counter's name (the
+    stage stamps are not counted)."""
+    from chalkydri_tpu_torch.ops import tail
+    from chalkydri_tpu_torch.ops.ccl_extract import threshold_ccl_extract
+    from chalkydri_tpu_torch.ops.extract_blocked import extract_candidates_band
+    from chalkydri_tpu_torch.ops.propagate import (
+        label_components_blocked,
+        propagate_components_blocked,
+    )
+    from chalkydri_tpu_torch.ops.segment_stats import segment_stats
+    from chalkydri_tpu_torch.ops.solve import solve_frames
+    from chalkydri_tpu_torch.ops.threshold_ccl import (
+        label_components_ccl,
+        threshold_ccl,
+        threshold_ccl_exact,
+    )
 
-    def __enter__(self):
-        import chalkydri_tpu_torch.detector.cluster as cluster
-        import chalkydri_tpu_torch.detector.pipeline as det
-        import chalkydri_tpu_torch.parallel.pipeline as par
-        import chalkydri_tpu_torch.parallel.sharded_stages as stages
-        from chalkydri_tpu_torch.ops.ccl_extract import threshold_ccl_extract_plain
-        from chalkydri_tpu_torch.ops.extract_blocked import (
-            extract_candidates_band_plain,
-        )
-        from chalkydri_tpu_torch.ops.propagate import (
-            label_components_blocked_plain,
-            propagate_components_blocked_plain,
-        )
-        from chalkydri_tpu_torch.ops.segment_stats import segment_stats_plain
-        from chalkydri_tpu_torch.ops.threshold_ccl import (
-            threshold_ccl_exact_plain,
-            threshold_ccl_plain,
-        )
-        from chalkydri_tpu_torch.pipeline import FrameSolver
+    return {"threshold_ccl_extract": threshold_ccl_extract,
+            "segment_stats": segment_stats,
+            "solve_frames": solve_frames,
+            "fit_select": tail.fit_select,
+            "refine_corners": tail.refine_corners,
+            "decode_rank": tail.decode_rank,
+            "threshold_ccl": threshold_ccl,
+            "label_components_ccl": label_components_ccl,
+            "threshold_ccl_exact": threshold_ccl_exact,
+            "label_components_blocked": label_components_blocked,
+            "propagate_components_blocked": propagate_components_blocked,
+            "extract_candidates_band": extract_candidates_band}
 
-        self._saved = [(FrameSolver, "forward", FrameSolver.forward),
-                       *((det, n, getattr(det, n)) for n in TAIL_PLAIN),
-                       (det, "threshold_ccl_extract", det.threshold_ccl_extract),
-                       (det, "threshold_ccl", det.threshold_ccl),
-                       (det, "threshold_ccl_exact", det.threshold_ccl_exact),
-                       (cluster, "segment_stats", cluster.segment_stats),
-                       (stages, "label_components_blocked",
-                        stages.label_components_blocked),
-                       (stages, "propagate_components_blocked",
-                        stages.propagate_components_blocked),
-                       (par, "extract_candidates_band",
-                        par.extract_candidates_band)]
-        FrameSolver.forward = FrameSolver.forward_plain
-        for name, plain in TAIL_PLAIN.items():
-            setattr(det, name, getattr(det, plain))
-        det.threshold_ccl_extract = threshold_ccl_extract_plain
-        det.threshold_ccl = threshold_ccl_plain
-        det.threshold_ccl_exact = threshold_ccl_exact_plain
-        cluster.segment_stats = segment_stats_plain
-        stages.label_components_blocked = label_components_blocked_plain
-        stages.propagate_components_blocked = propagate_components_blocked_plain
-        par.extract_candidates_band = extract_candidates_band_plain
-        return self
 
-    def __exit__(self, *exc):
-        for mod, name, fn in self._saved:
-            setattr(mod, name, fn)
-        return False
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def plain_run(label, fn):
+    """``fn()`` inside ``build.plain_chain()``: every kernel wrapper returns
+    its plain twin's result, on the card's tensors too. Raises if a kernel
+    launched in it (a wrapper's launch count moved)."""
+    from chalkydri_tpu_torch.ops import build
+
+    before = launch_counts()
+    with build.plain_chain():
+        out = fn()
+    moved = {k: n - before[k] for k, n in launch_counts().items()
+             if n != before[k]}
+    if moved:
+        raise AssertionError(f"{label}: kernels launched inside "
+                             f"plain_chain(): {moved}")
+    return out
+
+
+def kernel_run(label, fn, expect):
+    """``fn()`` on the kernels' route. Raises unless each wrapper named in
+    ``expect`` launched in it."""
+    before = launch_counts()
+    out = fn()
+    still = [k for k in expect if launch_counts()[k] == before[k]]
+    if still:
+        raise AssertionError(f"{label}: kernels {still} did not launch")
+    return out
 
 
 # The solve kernel's checks: every benchmark configuration's scenes at
 # these seeds, each drive of 14 poses seen by all its cameras.
 SOLVE_SEEDS = (2147483711, 3000000019, 4052555153, 5000000111, 6442450967)
 # The tail kernels (ops/tail.py, csrc/tail.cu) by their counters' names;
-# their checks' seeds (every benchmark configuration's drives); the plain
-# chain's stage functions that ``plain_twins`` and ``plain_tail`` put in
-# their place; operations they need a cluster point (T1: four EM
+# their checks' seeds (every benchmark configuration's drives);
+# operations they need a cluster point (T1: four EM
 # rounds of ~144 and the initial fit, counted from the code) and a
 # candidate (T2: 32 lanes of 9 bilinear samples, their sums and the line
 # fit; T3: the normal equations, the 8-step elimination, ~35 a sample, the
 # fits, 4 a code word).
 TAIL_KERNELS = ("fit_select", "refine_corners", "decode_rank")
 TAIL_SEEDS = SOLVE_SEEDS[:3]
-TAIL_PLAIN = {"select_quads": "select_quads_plain",
-              "refine_corners": "refine_quads",
-              "decode_rank": "decode_rank_plain"}
 TAIL_POINT_OPS, TAIL_REFINE_OPS, TAIL_DECODE_OPS, TAIL_WORD_OPS = (
     600, 7_000, 7_000, 4)
 # tests/test_solver.py::test_matches_numpy_reference's seeds by tag count
@@ -456,15 +462,17 @@ def solve_both(solver, dets, cam, rc_rot, rc_t, gyro, anchor=False):
     import torch
 
     with torch.no_grad():
-        got, n_got = solver(dets, cam, rc_rot, rc_t, gyro)
-        want, n_want = solver.forward_plain(dets, cam, rc_rot, rc_t, gyro)
+        got, n_got = kernel_run("solve", lambda: solver(
+            dets, cam, rc_rot, rc_t, gyro), ("solve_frames",))
+        want, n_want = plain_run("solve", lambda: solver(
+            dets, cam, rc_rot, rc_t, gyro))
         if not anchor:
             return got, n_got, want, n_want
         s64 = copy.deepcopy(solver).double()
         d64 = dets._replace(corners=dets.corners.double(),
                             decision_margins=dets.decision_margins.double())
-        ref, _ = s64.forward_plain(d64, cam.double(), rc_rot.double(),
-                                   rc_t.double(), gyro.double())
+        ref, _ = plain_run("solve float64", lambda: s64(
+            d64, cam.double(), rc_rot.double(), rc_t.double(), gyro.double()))
     return got, n_got, want, n_want, ref
 
 
@@ -772,8 +780,8 @@ def solve_phase(dev, card) -> dict:
     solver, dets, args, gyro = timing
     with torch.no_grad():
         ms = statistics.median(cuda_times_ms(lambda: solver(dets, *args, gyro)))
-        plain_ms = statistics.median(cuda_times_ms(
-            lambda: solver.forward_plain(dets, *args, gyro)))
+        plain_ms = statistics.median(cuda_times_ms(lambda: plain_run(
+            "solve timing", lambda: solver(dets, *args, gyro))))
         device_ms, launches = graph_device_ms(
             lambda: solver(dets, *args, gyro), sv.solve_frames)
     print(f"solve solve_frames {tuple(dets.ids.shape)}: kernel {ms:.4f} ms "
@@ -897,32 +905,32 @@ def tail_compare(det, gray, cl, gaps, label, max_detections=None):
     decoded, their valid, the ``Decoded``)."""
     import torch
 
-    from chalkydri_tpu_torch.detector import pipeline as dp
-    from chalkydri_tpu_torch.detector.quad import fit_quads
+    from chalkydri_tpu_torch.detector.decode import decode_rank_plain
+    from chalkydri_tpu_torch.detector.quad import fit_select_plain
+    from chalkydri_tpu_torch.detector.refine import refine_quads
     from chalkydri_tpu_torch.ops import tail
 
     kw = det._wide_kwargs
     qd, kq = kw["quad_decimate"], kw["max_quad_candidates"]
     d = max_detections or kw["max_detections"]
     with torch.no_grad():
-        q = fit_quads(cl.points, cl.mask, cl.valid)
-        corners, valid = dp.select_quads_plain(cl, kq, qd)
+        q, corners, valid = fit_select_plain(cl.points, cl.mask, cl.valid,
+                                             cl.count, kq, qd)
         kquads, kc, kv = tail.fit_select(cl.points, cl.mask, cl.valid,
                                          cl.count, kq, qd)
         gaps.add(label, ("quads' corners", "quads' valid", "corners",
                          "valid"), (kquads.corners, kquads.valid, kc, kv),
                  (q.corners, q.valid, corners, valid))
         if kw["refine"]:
-            refined = dp.refine_quads(gray, corners, valid)
+            refined = refine_quads(gray, corners, valid)
             gaps.add(label, ("refined corners",),
                      (tail.refine_corners(gray, corners, valid),), (refined,))
             corners = refined
-        dec = det.decode(gray, corners, valid)
+        dec, dets = decode_rank_plain(det.decode, gray, corners, valid, d)
         kdec, kdets = tail.decode_rank(det.decode, gray, corners, valid, d)
         gaps.add(label, [f"decoded {f}" for f in dec._fields], kdec, dec)
         gaps.add(label, ("ids", "detections' corners", "margins", "hammings",
-                         "detections' valid"), kdets,
-                 dp.rank_detections(dec, d))
+                         "detections' valid"), kdets, dets)
     gaps.calls += 1
     return corners, valid, dec
 
@@ -1064,18 +1072,18 @@ def tail_edge_cases(det, gray, cl, gaps) -> list:
     half = corners.shape[1] // 2
     dup = torch.cat([corners[:, :half], corners[:, :half] + 0.25], dim=1)
     dup_valid = torch.cat([valid[:, :half], valid[:, :half]], dim=1)
-    from chalkydri_tpu_torch.detector import pipeline as dp
+    from chalkydri_tpu_torch.detector.decode import decode_rank_plain
     from chalkydri_tpu_torch.ops import tail
 
     with torch.no_grad():
         for d in (1, 2, 16):
-            dec = det.decode(gray, dup, dup_valid)
+            dec, dets = decode_rank_plain(det.decode, gray, dup, dup_valid, d)
             kdec, kdets = tail.decode_rank(det.decode, gray, dup, dup_valid, d)
             label = (f"edge case duplicate ids, {d} slots, at "
                      f"{list(cl.mask.shape)}")
             gaps.add(label, [f"decoded {f}" for f in dec._fields], kdec, dec)
             gaps.add(label, ("ids", "corners", "margins", "hammings",
-                             "valid"), kdets, dp.rank_detections(dec, d))
+                             "valid"), kdets, dets)
     return [*cases, "duplicate ids", f"more detections than slots ({b} "
             f"frames of {int(dec.valid.sum())} valid candidates into 1 and "
             f"2 slots)"]
@@ -1154,24 +1162,6 @@ def graph_nodes(fn):
         return None
 
 
-class plain_tail:
-    """Within this context the detector's tail runs the plain chain on
-    CUDA tensors (``plain_twins``'s tail alone)."""
-
-    def __enter__(self):
-        import chalkydri_tpu_torch.detector.pipeline as det
-
-        self._saved = [(det, n, getattr(det, n)) for n in TAIL_PLAIN]
-        for name, plain in TAIL_PLAIN.items():
-            setattr(det, name, getattr(det, plain))
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn in self._saved:
-            setattr(mod, name, fn)
-        return False
-
-
 def tail_work(b, k, p, kq, nbits, samples, nwords) -> dict:
     """(bytes, operations) of T1-T3 at clusters [b, k, p], ``kq``
     candidates and a family of ``nbits`` bits, ``samples`` samples and
@@ -1196,7 +1186,9 @@ def tail_phase(dev, card) -> dict:
     with the kernels. Returns the kernel report's numbers."""
     import torch
 
-    from chalkydri_tpu_torch.detector import pipeline as dp
+    from chalkydri_tpu_torch.detector.decode import decode_rank_plain
+    from chalkydri_tpu_torch.detector.quad import fit_select_plain
+    from chalkydri_tpu_torch.detector.refine import refine_quads
     from chalkydri_tpu_torch.ops import tail
 
     t_phase = time.perf_counter()
@@ -1224,7 +1216,8 @@ def tail_phase(dev, card) -> dict:
     kq, qd, d = (kw["max_quad_candidates"], kw["quad_decimate"],
                  kw["max_detections"])
     corners, valid, _ = tail_compare(det, gray, cl, TailGaps(), "timing")
-    sel, sel_valid = dp.select_quads_plain(cl, kq, qd)
+    _, sel, sel_valid = fit_select_plain(cl.points, cl.mask, cl.valid,
+                                         cl.count, kq, qd)
     b, k, p = cl.mask.shape
     fam = det.decode
     work = tail_work(b, k, p, min(kq, k), len(fam.data_xy),
@@ -1233,12 +1226,13 @@ def tail_phase(dev, card) -> dict:
     stages = {
         "fit_select": (lambda: tail.fit_select(cl.points, cl.mask, cl.valid,
                                                cl.count, kq, qd),
-                       lambda: dp.select_quads_plain(cl, kq, qd)),
+                       lambda: fit_select_plain(cl.points, cl.mask,
+                                                cl.valid, cl.count, kq, qd)),
         "refine_corners": (lambda: tail.refine_corners(gray, sel, sel_valid),
-                           lambda: dp.refine_quads(gray, sel, sel_valid)),
+                           lambda: refine_quads(gray, sel, sel_valid)),
         "decode_rank": (lambda: tail.decode_rank(fam, gray, corners, valid, d),
-                        lambda: dp.decode_rank_plain(fam, gray, corners,
-                                                     valid, d)),
+                        lambda: decode_rank_plain(fam, gray, corners, valid,
+                                                  d)),
     }
     out = {}
     with torch.no_grad():
@@ -1276,11 +1270,14 @@ def tail_phase(dev, card) -> dict:
     pipe = eager_of(make_vision_pipeline(layout, params, rc, device=dev))
     gyro = torch.zeros(gray.shape[0], device=dev)
     with torch.no_grad():
-        with plain_tail():
-            before = graph_nodes(lambda: pipe(gray, gyro))
-        after = graph_nodes(lambda: pipe(gray, gyro))
+        before = plain_run("tail graph nodes", lambda: graph_nodes(
+            lambda: pipe(gray, gyro)))
+        after = kernel_run("tail graph nodes", lambda: graph_nodes(
+            lambda: pipe(gray, gyro)), ("threshold_ccl_extract",
+                                        "segment_stats", "solve_frames",
+                                        *TAIL_KERNELS))
     print(f"tail graph nodes of the comp2 qd2 step: {before} with the plain "
-          f"tail, {after} with the three kernels; phase "
+          f"chain, {after} with the kernels; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
@@ -1682,11 +1679,15 @@ def band_phases(dev, card, frames_sp):
     serp = torch.from_numpy(np.stack(
         [serpentine(stripes=6), serpentine(stripes=2)])).to(dev)
     serp_bands = place_frames(mesh, serp, spatial=True)[0]
-    got, rounds = label_components_block_kernel_rounds(serp_bands,
-                                                       outer_rounds=100)
-    with plain_twins():
-        want, want_rounds = label_components_block_kernel_rounds(
-            serp_bands, outer_rounds=100)
+    got, rounds = kernel_run(
+        "B6 serpentine over bands",
+        lambda: label_components_block_kernel_rounds(serp_bands,
+                                                     outer_rounds=100),
+        ("label_components_blocked", "propagate_components_blocked"))
+    want, want_rounds = plain_run(
+        "B6 serpentine over bands",
+        lambda: label_components_block_kernel_rounds(serp_bands,
+                                                     outer_rounds=100))
     got, want = gather_frames([got]), gather_frames([want])
     require_equal("B6 serpentine over bands", ("labels", "rounds"),
                   (got, rounds), (want, want_rounds))
@@ -2013,11 +2014,13 @@ def drive_path(label, step, frames, true_xy_yaw, counters, expect, card,
           f"frame's pose against its own truth: max position error "
           f"{pose_err:.5f} m, yaw {outs[0].pose_yaw.tolist()}", flush=True)
 
-    with plain_twins():
-        plain_out = eager(frames, gyros[0])
+    plain_out = plain_run(label, lambda: eager(frames, gyros[0]))
     # one card, the same detections: the solve kernel is the twin's bits
     compare_outputs(f"{label} vs plain twins", outs[0], plain_out,
                     exact_pose=against is None)
+    print(f"{label} vs plain twins: equal; no kernel launched inside "
+          f"build.plain_chain(), each of the path's {len(expect)} kernels "
+          f"outside it", flush=True)
     if against is not None:
         ref, got, how = against(frames, gyros[0]), outs[0], "slot for slot"
         if ties_may_reorder:
@@ -2039,8 +2042,7 @@ def drive_path(label, step, frames, true_xy_yaw, counters, expect, card,
             torch.cuda.synchronize()
             t = time.perf_counter()
             if plain:
-                with plain_twins():
-                    eager(frames, gyros[i % STEPS])
+                plain_run(label, lambda: eager(frames, gyros[i % STEPS]))
             else:
                 step(frames, gyros[i % STEPS])
             torch.cuda.synchronize()
@@ -2864,7 +2866,6 @@ def main() -> None:
         threshold_ccl_extract,
         threshold_ccl_extract_plain,
     )
-    from chalkydri_tpu_torch.ops.extract_blocked import extract_candidates_band
     from chalkydri_tpu_torch.ops.propagate import (
         label_components_blocked,
         propagate_components_blocked,
@@ -2873,8 +2874,6 @@ def main() -> None:
         segment_stats,
         segment_stats_plain,
     )
-    from chalkydri_tpu_torch.ops import tail
-    from chalkydri_tpu_torch.ops.solve import solve_frames
     from chalkydri_tpu_torch.ops.threshold_ccl import (
         label_components_ccl,
         threshold_ccl,
@@ -2999,18 +2998,7 @@ def main() -> None:
     tail_report = tail_phase(dev, card)
 
     # -- the paths through the entry points, kernels counted --------------
-    counters = {"threshold_ccl_extract": threshold_ccl_extract,
-                "segment_stats": segment_stats,
-                "solve_frames": solve_frames,
-                "fit_select": tail.fit_select,
-                "refine_corners": tail.refine_corners,
-                "decode_rank": tail.decode_rank,
-                "threshold_ccl": threshold_ccl,
-                "label_components_ccl": label_components_ccl,
-                "threshold_ccl_exact": threshold_ccl_exact,
-                "label_components_blocked": label_components_blocked,
-                "propagate_components_blocked": propagate_components_blocked,
-                "extract_candidates_band": extract_candidates_band}
+    counters = kernel_counters()
     step = make_vision_pipeline(layout, params, rc, device=dev)
     threshold_ccl_extract.chain_launches = 0
     qd2 = drive_path("qd2 main path", step, frames, poses, counters,

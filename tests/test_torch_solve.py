@@ -4,8 +4,9 @@ The kernel itself runs only on a card (``chip_smoke.py`` holds it to the
 plain twin there, bit for bit). Here: the shape function that sizes its
 CTA and refuses too many tags, the C entries' arity against
 ``ops/build.py::_SIGNATURES``, the frame strides the wrapper passes for
-the detector's sliced outputs, that CPU tensors take the plain twin,
-unchanged, and never the kernel's entry, and the plain twin at four
+the detector's sliced outputs, that CPU tensors take the plain twin
+(``solver/robot_pose.py::solve_frames_plain``), unchanged, and never the
+kernel library, and the plain twin at four
 cameras against the float64 oracle. On a card (marked ``cuda``, skipped
 without one): the kernel equals the plain chain bit for bit at [4, 16]
 on the four-camera benchmark rig's drive.
@@ -27,6 +28,7 @@ from chalkydri_tpu_torch.geometry.field_layout import load_field_layout
 from chalkydri_tpu_torch.ops import build
 from chalkydri_tpu_torch.ops import solve as S
 from chalkydri_tpu_torch.pipeline import build_rig_from_config
+from chalkydri_tpu_torch.solver.robot_pose import solve_frames_plain
 from chalkydri_tpu_torch.tools.scenes import (
     FIELD_JSON,
     MOUNT,
@@ -124,17 +126,30 @@ def frame_inputs():
 
 
 def _refuse(*args, **kwargs):
-    raise AssertionError("a CPU tensor reached the kernel's entry")
+    raise AssertionError("a CPU tensor reached the kernel library")
+
+
+def _plain(solver, dets, cam_params, rc_rot, rc_t, gyro):
+    """The plain twin of ``solver``'s solve: (``RobotPoseResult``,
+    n_tags)."""
+    *res, n_tags = solve_frames_plain(
+        dets.ids, dets.corners, dets.valid, dets.decision_margins,
+        solver.rot_table, solver.t_table, solver.present, cam_params, rc_rot,
+        rc_t, gyro, tag_size=solver.tag_size, sign_flip=solver.sign_flip,
+        decision_margin_min=solver.decision_margin_min,
+        max_iter=pipeline.MAX_ITER)
+    return pipeline.RobotPoseResult(*res), n_tags
 
 
 def test_frame_solver_cpu_takes_the_plain_twin(frame_inputs, monkeypatch):
-    """``FrameSolver.forward`` on CPU tensors is ``forward_plain``,
-    bit for bit, and never calls the kernel's entry."""
+    """``FrameSolver.forward`` on CPU tensors is the plain twin
+    (``solve_frames_plain``), bit for bit, and never reaches the kernel
+    library."""
     layout, dets, params, rc_rot, rc_t, gyro = frame_inputs
     solver = pipeline.make_frame_solver(layout)
-    monkeypatch.setattr(pipeline, "solve_frames", _refuse)
+    monkeypatch.setattr(build, "kernel_library", _refuse)
     got, n = solver(dets, params, rc_rot, rc_t, gyro)
-    want, n_want = solver.forward_plain(dets, params, rc_rot, rc_t, gyro)
+    want, n_want = _plain(solver, dets, params, rc_rot, rc_t, gyro)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert torch.equal(n, n_want) and n.tolist() == [4, 4]
@@ -145,17 +160,22 @@ def test_frame_solver_cpu_takes_the_plain_twin(frame_inputs, monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["solve_frames"])
-def test_kernel_entries_refuse_cpu_tensors(frame_inputs, entry):
-    """The kernel's entry takes CUDA tensors or raises: no plain path
-    hides behind it."""
+def test_kernel_entries_refuse_cpu_tensors(frame_inputs, entry,
+                                           monkeypatch):
+    """CPU tensors never reach the kernel: with the kernel library made to
+    raise, the entry returns its plain twin's (rotation, position,
+    std_devs, valid, n_tags) bit for bit."""
     layout, dets, params, rc_rot, rc_t, gyro = frame_inputs
-    with pytest.raises(ValueError, match="unsupported device"):
-        getattr(S, entry)(dets.ids, dets.corners, dets.valid,
-                          dets.decision_margins, layout.rotations,
-                          layout.translations, layout.present, params,
-                          rc_rot, rc_t, gyro, tag_size=0.1651,
-                          sign_flip=600.0, decision_margin_min=0.0,
-                          max_iter=15)
+    args = (dets.ids, dets.corners, dets.valid, dets.decision_margins,
+            layout.rotations, layout.translations, layout.present, params,
+            rc_rot, rc_t, gyro)
+    kw = dict(tag_size=0.1651, sign_flip=600.0, decision_margin_min=0.0,
+              max_iter=15)
+    monkeypatch.setattr(build, "kernel_library", _refuse)
+    got = getattr(S, entry)(*args, **kw)
+    assert len(got) == 5 and got[4].dtype == torch.int32
+    torch.testing.assert_close(got, solve_frames_plain(*args, **kw), rtol=0,
+                               atol=0)
 
 
 # -- four cameras: the plain twin at B = 4, and the kernel on a card ---------
@@ -215,11 +235,11 @@ def _oracle_batch():
 
 
 def test_plain_twin_at_four_cameras_matches_the_f64_oracle():
-    """``FrameSolver.forward_plain`` over a batch of four cameras, each
-    frame its own oracle scene, in float64: every frame within the
-    gates' 1e-9 of the numpy oracle, as at one camera."""
+    """The plain twin (``solve_frames_plain``) over a batch of four
+    cameras, each frame its own oracle scene, in float64: every frame
+    within the gates' 1e-9 of the numpy oracle, as at one camera."""
     solver, inputs, want = _oracle_batch()
-    out, n_tags = solver.forward_plain(*inputs)
+    out, n_tags = _plain(solver, *inputs)
     assert n_tags.tolist() == [n for n, _ in ORACLE_FRAMES]
     assert out.valid.tolist() == [True] * len(ORACLE_FRAMES)
     for f, (rot, pos, std) in enumerate(want):

@@ -1,12 +1,13 @@
 """Host side of the tail kernels (``ops/tail.py``, ``csrc/tail.cu``).
 
 The kernels run only on a card (``chip_smoke.py`` holds them to the plain
-chain there, bit for bit). Here: on CPU tensors the detector's tail takes
-the plain chain and never a kernel's entry, and equals the benchmark's
-frozen copy of the port's plain tail bit for bit on the parity corpus;
-the launch geometry and shared memory are pure functions of the shapes,
-within the card's limits for every family; the C entries are registered;
-the wrappers refuse shapes and devices they cannot take. On a card
+chain there, bit for bit). Here: on CPU tensors each wrapper returns its
+plain twin's result and never reaches the kernel library, and the
+detector's tail equals the benchmark's frozen copy of the port's plain
+tail bit for bit on the parity corpus; the launch geometry and shared
+memory are pure functions of the shapes, within the card's limits for
+every family; the C entries are registered; the kernel route refuses
+shapes it cannot take before any launch. On a card
 (marked ``cuda``, skipped without one): T1-T3 equal the plain chain bit
 for bit on the benchmark drives at [2, 64, 128] and [4, 64, 128], on the
 edge cases, for every family with refine on and off, and a replayed step
@@ -21,8 +22,11 @@ import torch
 
 import chalkydri_tpu_torch.detector.pipeline as dp
 from chalkydri_tpu_torch.detector.cluster import Clusters
+from chalkydri_tpu_torch.detector.decode import decode_rank_plain
 from chalkydri_tpu_torch.detector.families import load_family
 from chalkydri_tpu_torch.detector.pipeline import Detector
+from chalkydri_tpu_torch.detector.quad import fit_select_plain
+from chalkydri_tpu_torch.detector.refine import refine_quads
 from chalkydri_tpu_torch.ops import build
 from chalkydri_tpu_torch.ops import tail
 
@@ -94,23 +98,24 @@ def test_cpu_tail_is_the_plain_chain(corpus, batch, quad_decimate, refine,
 
 
 def test_cpu_stage_functions_take_the_plain_chain(corpus, monkeypatch):
-    """``select_quads``, ``refine_corners`` and ``decode_rank`` on CPU
-    tensors are their plain versions."""
-    for name in ("fit_select", "refine_corners", "decode_rank"):
-        monkeypatch.setattr(tail, name, _refuse)
+    """``tail.fit_select``, ``tail.refine_corners`` and ``tail.decode_rank``
+    on CPU tensors return their plain twins' results, in the kernels'
+    structure, and never reach the kernel library."""
+    monkeypatch.setattr(build, "kernel_library", _refuse)
     det = Detector()
     gray = torch.from_numpy(corpus[0])
     with torch.no_grad():
         cl = _clusters_of(det, gray)
-        corners, valid = dp.select_quads(cl, 32, 2)
-        want_c, want_v = dp.select_quads_plain(cl, 32, 2)
-        assert torch.equal(corners, want_c) and torch.equal(valid, want_v)
-        refined = dp.refine_corners(gray, corners, valid)
-        assert torch.equal(refined, dp.refine_quads(gray, corners, valid))
-        got = dp.decode_rank(det.decode, gray, refined, valid, 16)
-        want = dp.decode_rank_plain(det.decode, gray, refined, valid, 16)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        got = tail.fit_select(cl.points, cl.mask, cl.valid, cl.count, 32, 2)
+        want = fit_select_plain(cl.points, cl.mask, cl.valid, cl.count, 32, 2)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        _, corners, valid = got
+        refined = tail.refine_corners(gray, corners, valid)
+        assert torch.equal(refined, refine_quads(gray, corners, valid))
+        got = tail.decode_rank(det.decode, gray, refined, valid, 16)
+        want = decode_rank_plain(det.decode, gray, refined, valid, 16)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(got[1][4].sum()) > 0
 
 
 @pytest.mark.parametrize("k,p", [(1, 1), (1, 128), (7, 32), (16, 128),
@@ -189,19 +194,27 @@ def _clusters(b=2, k=64, p=128):
                     dropped=torch.zeros(b, dtype=torch.int32))
 
 
-def test_wrappers_refuse_cpu_tensors():
-    """A CPU tensor of a shape the kernels take is refused by its device:
-    the wrappers never fall back to the plain chain."""
+def test_wrappers_refuse_cpu_tensors(monkeypatch):
+    """A CPU tensor never reaches a kernel: with the kernel library made
+    to raise, each wrapper returns its plain twin's result bit for bit,
+    in the kernel's structure (T1 (``Quads``, corners, valid), T3
+    (``Decoded``, detections))."""
+    monkeypatch.setattr(build, "kernel_library", _refuse)
     cl = _clusters()
     gray = torch.zeros(2, 64, 80, dtype=torch.uint8)
     corners = torch.zeros(2, 32, 4, 2)
     valid = torch.zeros(2, 32, dtype=torch.bool)
-    with pytest.raises(ValueError, match="unsupported device"):
-        tail.fit_select(cl.points, cl.mask, cl.valid, cl.count, 32, 2)
-    with pytest.raises(ValueError, match="unsupported device"):
-        tail.refine_corners(gray, corners, valid)
-    with pytest.raises(ValueError, match="unsupported device"):
-        tail.decode_rank(Detector().decode, gray, corners, valid, 16)
+    dec = Detector().decode
+    with torch.no_grad():
+        torch.testing.assert_close(
+            tail.fit_select(cl.points, cl.mask, cl.valid, cl.count, 32, 2),
+            fit_select_plain(cl.points, cl.mask, cl.valid, cl.count, 32, 2),
+            rtol=0, atol=0)
+        assert torch.equal(tail.refine_corners(gray, corners, valid),
+                           refine_quads(gray, corners, valid))
+        torch.testing.assert_close(
+            tail.decode_rank(dec, gray, corners, valid, 16),
+            decode_rank_plain(dec, gray, corners, valid, 16), rtol=0, atol=0)
 
 
 def _bad_calls(dev):
@@ -241,9 +254,12 @@ def _bad_calls(dev):
 
 
 @pytest.mark.parametrize("case", sorted(_bad_calls("cpu")))
-def test_wrappers_refuse_shapes(case):
-    """Shapes and types the kernels cannot take raise ``ValueError``
-    before any device check or launch (so on a card too)."""
+def test_wrappers_refuse_shapes(case, monkeypatch):
+    """Shapes and types the kernels cannot take raise ``ValueError`` on
+    the kernel route before any launch: the route forced on CPU tensors
+    (``build.on_card`` true), the kernel library made to raise."""
+    monkeypatch.setattr(build, "on_card", lambda *tensors: True)
+    monkeypatch.setattr(build, "kernel_library", _refuse)
     with pytest.raises(ValueError):
         _bad_calls("cpu")[case]()
 
