@@ -343,9 +343,11 @@ def gradient_clusters_batched(
     min_points: int = MIN_CLUSTER_POINTS,
 ) -> Clusters:
     """Clusters of [B, H, W] ternary + label images: extraction and
-    compaction, then ``cluster_candidates_batched``."""
-    black, white, payload, dropped = extract_and_compact(tern, labels,
-                                                         max_points)
+    compaction (kernels X1-X3 on a card, ``ops/front.py``, which imports
+    this module), then ``cluster_candidates_batched``."""
+    from chalkydri_tpu_torch.ops.front import extract_compact
+
+    black, white, payload, dropped = extract_compact(tern, labels, max_points)
     return cluster_candidates_batched(
         black, white, payload, max_points=max_points,
         max_clusters=max_clusters, cluster_points=cluster_points,

@@ -9,9 +9,10 @@ count, as the JAX package's dispatch does:
 
 - at most ``EXTRACT_BLOCK_MAX_PIXELS``: the fused kernel B1;
 - at most ``SINGLE_BLOCK_MAX_PIXELS``: kernel B3 (threshold + ``ccl_iters``
-  CCL rounds, through B4), then ``extract_and_compact``;
+  CCL rounds, through B4), then extraction and compaction (kernels X1-X3,
+  ``ops/front.py``);
 - larger: kernel B5 (threshold + CCL to the global fixed point, padded-flat
-  labels), then ``extract_and_compact``.
+  labels), then X1-X3.
 
 The two constants are the JAX package's TPU budgets, kept here as
 semantics: B3 and B5 label differently, and label values feed the cluster
@@ -32,7 +33,6 @@ from chalkydri_tpu_torch.detector.cluster import (
     MAX_EDGE_POINTS,
     cluster_candidates_batched,
     compact_candidates,
-    extract_and_compact,
 )
 from chalkydri_tpu_torch.detector.decode import Decoder
 from chalkydri_tpu_torch.detector.families import (
@@ -41,7 +41,7 @@ from chalkydri_tpu_torch.detector.families import (
     TagFamily,
     load_family,
 )
-from chalkydri_tpu_torch.ops import tail
+from chalkydri_tpu_torch.ops import front, tail
 from chalkydri_tpu_torch.ops.ccl_extract import threshold_ccl_extract
 from chalkydri_tpu_torch.ops.threshold_ccl import (
     threshold_ccl,
@@ -185,7 +185,7 @@ class Detector(nn.Module):
             tern, labels = threshold_ccl(small, iters=self.ccl_iters)
         else:
             tern, labels = threshold_ccl_exact(small)
-        return extract_and_compact(tern, labels, max_points=self.edge_cap)
+        return front.extract_compact(tern, labels, max_points=self.edge_cap)
 
     @torch.no_grad()
     def detect(self, gray_batch: torch.Tensor) -> Detections:

@@ -36,7 +36,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("ccl_extract.cu", "segment_stats.cu", "threshold_ccl.cu",
            "propagate.cu", "extract_blocked.cu", "stamp.cu", "solve.cu",
-           "tail.cu")
+           "tail.cu", "front.cu")
 HEADERS = ("ccl_common.cuh", "union_find.cuh", "ordered.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -79,6 +79,9 @@ _SIGNATURES = {
     "chalkydri_tail_refine": [_P] * 4,
     # ptrs, ints, stream
     "chalkydri_tail_decode": [_P] * 3,
+    # tern, labels, B, H, W, keep0, keep1, counts0, counts1, flags0,
+    # flags1, sel, part, black, white, payload, dropped, stream
+    "chalkydri_front_extract": [_P] * 2 + [_I] * 5 + [_P] * 11,
 }
 
 

@@ -67,7 +67,16 @@
    duplicate ids, more detections than slots; each family with refine on
    and off at quad_decimate 2 and 1), each kernel's time beside its
    bound and the plain chain's, and the qd2 step's graph nodes with the
-   tail plain and with the kernels;
+   tail plain and with the kernels; the front end's extraction and block
+   compaction (``ops/front.py``: X1 count, X2 select, X3 emit) against
+   ``extract_and_compact`` bit for bit on the deployed qd1 frames (B5's
+   labels), the qd1 bench frames (B3's), a blank frame, the deployed
+   frames under noise (far over the budget), both at the capacity
+   fallback's wide budget too, sides no multiple of 128 or 16, blobs of
+   odd sides (B4's labels) and a tern off 16-byte alignment, and a crop
+   that needs no compaction (B7's dense pages, none of X1-X3); and at the
+   two qd1 shapes each kernel's device time beside the three's bound and
+   the plain chain's, and the graph nodes of one call of each;
 5. drives four paths through the entry points (``build_rig_from_config``
    -> ``make_vision_pipeline`` / ``make_sharded_vision_pipeline``), each
    with the launch counts set to 0 just before it and read just after
@@ -82,7 +91,10 @@
    graph, its band CCL's seam rounds gated on the card: a fixed tally a
    replay of one B6 label call, ``2 * bands + 2`` B6 propagate calls and
    one B7 call a band, and one B2 call); every path also one launch of
-   the solve kernel and of each tail kernel a step. Each checks the ids and each
+   the solve kernel and of each tail kernel a step, and the qd1 paths one
+   X1-X3 call a step (with the qd1 steps' graph nodes, and those of the same steps with the plain
+   extraction in X1-X3's place: less X1-X3's nodes, plus the plain
+   chain's). Each checks the ids and each
    frame's pose against its own truth and that every kernel of the path
    launched, compares the step with the same step run on the plain twins
    only (the eager module's, inside ``build.plain_chain()``, where no
@@ -265,7 +277,7 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port by its launch counter's name (the
     stage stamps are not counted)."""
-    from chalkydri_tpu_torch.ops import tail
+    from chalkydri_tpu_torch.ops import front, tail
     from chalkydri_tpu_torch.ops.ccl_extract import threshold_ccl_extract
     from chalkydri_tpu_torch.ops.extract_blocked import extract_candidates_band
     from chalkydri_tpu_torch.ops.propagate import (
@@ -289,6 +301,7 @@ def kernel_counters() -> dict:
             "threshold_ccl": threshold_ccl,
             "label_components_ccl": label_components_ccl,
             "threshold_ccl_exact": threshold_ccl_exact,
+            "extract_compact": front.extract_compact,
             "label_components_blocked": label_components_blocked,
             "propagate_components_blocked": propagate_components_blocked,
             "extract_candidates_band": extract_candidates_band}
@@ -1280,6 +1293,171 @@ def tail_phase(dev, card) -> dict:
           f"chain, {after} with the kernels; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
+
+
+# X1-X3 (ops/front.py): the noise that floods the deployed frames with
+# candidates (sigma, gray levels), and the capacity fallback's wide budget.
+FRONT_NOISE = 6.0
+FRONT_WIDE = 2
+
+
+def front_cases(dev) -> dict:
+    """name -> (tern, labels, max_points) for X1-X3: the deployed qd1
+    frames with B5's labels, the qd1 bench frames with B3's, a blank
+    frame, the deployed frames under noise (far over the budget), both at
+    the wide budget too, and off the fast paths: sides no multiple of 128
+    or 16 (B5's labels), blobs of odd sides (B4's) and a tern one byte off
+    16-byte alignment; and a crop that needs no compaction (B7's dense
+    pages, X1-X3 not launched)."""
+    import torch
+
+    from chalkydri_tpu_torch.detector.cluster import MAX_EDGE_POINTS
+    from chalkydri_tpu_torch.ops.threshold_ccl import (
+        label_components_ccl,
+        threshold_ccl,
+        threshold_ccl_exact,
+    )
+    from chalkydri_tpu_torch.tools.scenes import blob_tern, load_scene
+
+    _, _, _, bench, _ = load_scene("bench", dev)
+    _, _, _, dep, _ = load_scene("deployed", dev)
+    rng = np.random.default_rng(5)
+    noisy = torch.from_numpy(np.clip(
+        dep.cpu().numpy() + rng.normal(0, FRONT_NOISE, dep.shape), 0,
+        255).astype(np.uint8)).to(dev)
+    blobs = torch.from_numpy(blob_tern((2, 333, 517), 3)).to(dev)
+    dep_tl = threshold_ccl_exact(dep)
+    noisy_tl = threshold_ccl_exact(noisy)
+    off = torch.empty(dep.numel() + 1, dtype=torch.uint8, device=dev)[1:]
+    off = off.view(dep.shape).copy_(dep_tl[0])
+    return {
+        "deployed qd1": (*dep_tl, MAX_EDGE_POINTS),
+        "qd1 bench": (*threshold_ccl(bench, iters=12), MAX_EDGE_POINTS),
+        "blank": (*threshold_ccl_exact(torch.zeros_like(dep)),
+                  MAX_EDGE_POINTS),
+        "overflow": (*noisy_tl, MAX_EDGE_POINTS),
+        "wide budget": (*dep_tl, FRONT_WIDE * MAX_EDGE_POINTS),
+        "wide budget, overflow": (*noisy_tl, FRONT_WIDE * MAX_EDGE_POINTS),
+        "odd sides": (*threshold_ccl_exact(
+            dep[:, 400:732, 200:716].contiguous()), 4096),
+        "blobs": (blobs, label_components_ccl(blobs, 12), 8192),
+        "unaligned tern": (off, dep_tl[1], MAX_EDGE_POINTS),
+        "within the budget": (*threshold_ccl_exact(
+            dep[:, 400:528, 200:456].contiguous()), MAX_EDGE_POINTS),
+    }
+
+
+def front_checks(dev) -> dict:
+    """X1-X3 against their twin, ``extract_and_compact`` inside
+    ``build.plain_chain()``, bit for bit on ``front_cases``; the noisy
+    frames must drop candidates at the standard budget; frames that need
+    no compaction launch B7 and none of X1-X3. Returns a line a case."""
+    import torch
+
+    from chalkydri_tpu_torch.ops import front
+
+    lines = {}
+    for name, (tern, labels, mp) in front_cases(dev).items():
+        label = f"X1-X3 {name}"
+        dense = 2 * tern[0].numel() <= mp
+        x_before = front.extract_compact.launches
+        got = kernel_run(label, lambda: front.extract_compact(
+            tern, labels, mp),
+            ("extract_candidates_band",) if dense else ("extract_compact",))
+        if dense and front.extract_compact.launches != x_before:
+            raise AssertionError(f"{label}: X1-X3 launched on frames that "
+                                 f"need no compaction")
+        want = plain_run(label, lambda: front.extract_compact(
+            tern, labels, mp))
+        require_equal(label, ("black", "white", "payload", "dropped"), got,
+                      want)
+        kept = (want[0] != 2 ** 31 - 1).sum(1).tolist()
+        dropped = want[3].tolist()
+        if name == "overflow" and min(dropped) <= 0:
+            raise AssertionError(f"{label}: dropped {dropped}, the budget "
+                                 f"does not bite")
+        lines[name] = (f"{list(tern.shape)} max_points {mp}: "
+                       f"{want[0].shape[1] // front.BLOCK} blocks a frame, "
+                       f"edges kept {kept}, dropped {dropped}")
+    return lines
+
+
+def front_work(b: int, h: int, w: int, max_points: int,
+               edges: int) -> tuple[int, int]:
+    """(bytes, operations) of X1-X3 on [b, h, w] with ``edges`` edge slots
+    kept: the ternary image read once, an edge slot's two labels (its
+    pixel's and its partner's) read, the compacted pages and ``dropped``
+    written; EXTRACT_OPS a pixel."""
+    from chalkydri_tpu_torch.ops import front
+
+    slots = b * sum(front.kept_blocks(h, w, max_points)) * front.BLOCK
+    return b * h * w + 8 * edges + 12 * slots + 4 * b, b * h * w * EXTRACT_OPS
+
+
+def front_phase(dev, card, deployed, bench) -> dict:
+    """X1-X3 against the twin on ``front_cases``; then at the two qd1
+    shapes (``deployed``: B5's (tern, labels) of the deployed frames,
+    ``bench``: B3's of the bench frames) each kernel's device time, the
+    three's by events over a graph of 20 calls, beside their bound and
+    the plain chain's, and the graph nodes of one call of each. Returns
+    the deployed shape's numbers for the kernel report."""
+    t_phase = time.perf_counter()
+    for name, line in front_checks(dev).items():
+        print(f"X1-X3 extract_compact {name} bit-identical: {line} [{card}]",
+              flush=True)
+    out = {label: front_timing(label, *tl, card)
+           for label, tl in (("deployed qd1", deployed),
+                             ("qd1 bench", bench))}
+    print(f"X1-X3 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out["deployed qd1"] | {"bench": out["qd1 bench"]}
+
+
+def front_timing(label, tern, labels, card) -> dict:
+    """X1-X3 on one qd1 shape: each kernel's device time (the profiler),
+    the three's by events over a graph of 20 calls, the plain chain's, the
+    bound (its edge slots counted in the twin's output), and the graph
+    nodes of one call of each."""
+    import torch
+
+    from chalkydri_tpu_torch.detector.cluster import MAX_EDGE_POINTS
+    from chalkydri_tpu_torch.ops import front
+    from chalkydri_tpu_torch.tools.perfprobe import device_times
+
+    def kernel():
+        return front.extract_compact(tern, labels)
+
+    def plain():
+        return plain_run(label, kernel)
+
+    with torch.no_grad():
+        ms = statistics.median(cuda_times_ms(kernel))
+        plain_ms = statistics.median(cuda_times_ms(plain))
+        kernels = device_times(kernel, per_call=3,
+                               wrapper=front.extract_compact)
+        graph_ms, launches = graph_device_ms(kernel, front.extract_compact)
+        plain_graph_ms, _ = graph_device_ms(plain, front.extract_compact)
+        nodes, plain_nodes = graph_nodes(kernel), graph_nodes(plain)
+        edges = int((plain()[0] != 2 ** 31 - 1).sum())
+    device_ms = sum(k["us_per_call"] for k in kernels.values()) / 1e3
+    per_call = sum(k["launches_per_call"] for k in kernels.values())
+    work = front_work(*tern.shape, MAX_EDGE_POINTS, edges)
+    bound_ms, bound_by = bound(*work)
+    each = ", ".join(f"{k} {v['us_per_call']:.2f} us"
+                     for k, v in sorted(kernels.items()))
+    print(f"X1-X3 extract_compact {label} {tuple(tern.shape)}: kernel "
+          f"{ms:.4f} ms (device {device_ms:.4f} ms in {per_call} launches a "
+          f"call: {each}; {graph_ms:.4f} ms a call by events over a graph "
+          f"of 20 calls, {launches:g} launch a call counted), plain chain "
+          f"{plain_ms:.4f} ms (device {plain_graph_ms:.4f} ms replayed); "
+          f"bound {bound_ms * 1e3:.4f} us by {bound_by} ({work[0]} bytes, "
+          f"{work[1]} operations, {edges} edge slots: "
+          f"{bound_ms / graph_ms * 100:.2f} % of the replayed time); "
+          f"graph nodes a call {nodes} (plain chain "
+          f"{plain_nodes}) [{card}]", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+            "graph_ms": graph_ms, "plain_graph_ms": plain_graph_ms,
+            "nodes": nodes, "plain_nodes": plain_nodes, "bytes": work[0],
+            "ops": work[1], "launches_per_call": per_call}
 
 
 def require_equal(label: str, names, got, want) -> None:
@@ -2987,6 +3165,9 @@ def main() -> None:
     b5_px = dep_frames.numel()
     b5_edge_cases(dev, serp, dep_frames.shape)
 
+    # X1-X3 after B5 and B3, and off their shapes.
+    x_report = front_phase(dev, card, got5, got3)
+
     # B6 and B7 at the spatial path's band shapes, and off them.
     band = band_phases(dev, card, sp_frames)
     band_edge_cases(dev)
@@ -3009,16 +3190,31 @@ def main() -> None:
         raise AssertionError("qd2 main path: B1 took the chain route")
     step_qd1 = make_vision_pipeline(layout, params, rc, device=dev,
                                     detector_kwargs={"quad_decimate": 1})
-    qd1 = drive_path("qd1 bench path", step_qd1, frames, poses, counters,
-                     ("threshold_ccl", "label_components_ccl",
-                      "segment_stats", "solve_frames", *TAIL_KERNELS), card,
-                     TIMED_STEPS["qd1"])
     step_dep = make_vision_pipeline(layout, dep_params, dep_rc, device=dev,
                                     detector_kwargs={"quad_decimate": 1})
+    qd1 = drive_path("qd1 bench path", step_qd1, frames, poses, counters,
+                     ("threshold_ccl", "label_components_ccl",
+                      "extract_compact", "segment_stats", "solve_frames",
+                      *TAIL_KERNELS), card, TIMED_STEPS["qd1"])
     dep = drive_path("qd1 deployed path", step_dep, dep_frames, dep_poses,
-                     counters, ("threshold_ccl_exact", "segment_stats",
-                                "solve_frames", *TAIL_KERNELS), card,
-                     TIMED_STEPS["qd1"])
+                     counters, ("threshold_ccl_exact", "extract_compact",
+                                "segment_stats", "solve_frames",
+                                *TAIL_KERNELS), card, TIMED_STEPS["qd1"])
+    x_launches = (qd1["extract_compact"], dep["extract_compact"])
+    if x_launches != (STEPS, STEPS):
+        raise AssertionError(f"qd1 paths: X1-X3 launched {x_launches} times "
+                             f"in {STEPS} replays each")
+    for label, qd1_step, f, x in (
+            ("qd1 deployed", step_dep, dep_frames, x_report),
+            ("qd1 bench", step_qd1, frames, x_report["bench"])):
+        gyro = torch.zeros(f.shape[0], device=dev)  # not a node of its own
+        with torch.no_grad():
+            nodes = graph_nodes(lambda: qd1_step.module(f, gyro))
+        print(f"{label} step graph nodes: {nodes} with X1-X3; "
+              f"{nodes - x['nodes'] + x['plain_nodes']} with the plain "
+              f"extraction and compaction in their place (X1-X3 "
+              f"capture {x['nodes']} nodes a call, the plain chain "
+              f"{x['plain_nodes']}); X1-X3 once a step", flush=True)
 
     # The row-banded step: four bands of the one card, kernel CCL, one
     # CUDA graph replay a step.
@@ -3196,6 +3392,14 @@ def main() -> None:
                           b5_plain_ms, b5_px * (1 + 1 + 4),
                           b5_px * (THRESH_OPS + UNION_FIND_OPS)),
              device_ms=b5_dev_ms, launches_per_call=b5_dev_launches),
+        dict(kernel_entry("extract_compact", "front.cu", None,
+                          dep["extract_compact"], 0.0, x_report["ms"],
+                          x_report["plain_ms"], x_report["bytes"],
+                          x_report["ops"]),
+             replaces=None, device_ms=x_report["device_ms"],
+             launches_per_call=x_report["launches_per_call"],
+             graph_ms=x_report["graph_ms"],
+             plain_device_ms=x_report["plain_graph_ms"]),
         *(dict(kernel_entry(name, source, replaces, spatial[1][name],
                             *band[name][:5]),
                device_ms=band[name][5], launches_per_call=band[name][6],

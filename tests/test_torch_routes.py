@@ -6,7 +6,7 @@ kernel wrapper in ``ops/`` launches its kernel then, and returns its
 plain twin's result otherwise. Here: the predicate and the context (the
 device decides outside it, the answer is false inside it, the state is
 per thread, nests and comes back after an exception), and each of the
-fourteen wrapper entries on CPU tensors, inside and outside the context,
+fifteen wrapper entries on CPU tensors, inside and outside the context,
 against its twin bit for bit, with the kernel library made to raise.
 """
 
@@ -22,6 +22,7 @@ from chalkydri_tpu_torch.detector.cluster import (
     MAX_EDGE_POINTS,
     cluster_candidates_batched,
     compact_candidates,
+    extract_and_compact,
     sort_candidates,
 )
 from chalkydri_tpu_torch.detector.decode import decode_rank_plain
@@ -33,7 +34,7 @@ from chalkydri_tpu_torch.detector.segment import (
     rounds_needed,
 )
 from chalkydri_tpu_torch.detector.threshold import adaptive_threshold
-from chalkydri_tpu_torch.ops import build, tail
+from chalkydri_tpu_torch.ops import build, front, tail
 from chalkydri_tpu_torch.ops.ccl_extract import (
     threshold_ccl_extract,
     threshold_ccl_extract_plain,
@@ -192,6 +193,9 @@ ENTRIES = {
     "B7 extract_candidates_band": (
         lambda s: extract_candidates_band(s.tern, s.labels, 1, 2, 7),
         lambda s: extract_candidates_band_plain(s.tern, s.labels, 1, 2, 7)),
+    "X1-X3 extract_compact": (
+        lambda s: front.extract_compact(s.tern, s.labels, 1024),
+        lambda s: extract_and_compact(s.tern, s.labels, 1024)),
     "S1 solve_frames": (
         lambda s: solve_frames(*s.solve[0], **s.solve[1]),
         lambda s: solve_frames_plain(*s.solve[0], **s.solve[1])),
